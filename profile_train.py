@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Where the train-step time of the PyTorch port goes on one CUDA GPU.
+
+    python3 profile_train.py
+
+Runs the train configuration of ``chip_smoke.py`` (preset
+``bisenet_source_aug`` with the binned Lovász loss: BiSeNet-R18 in bf16,
+Adam, ``all_four_combined`` augmentation, batch 8 at 512x1024, seeded
+random init, synthetic frames). After 3 warm-up steps it prints, twice (the
+repeat shows the spread):
+
+- ms/step by CUDA events over 5 steps, with no profiler attached;
+- the device kernel time per step from ``torch.profiler`` over 3 steps,
+  split into kernel groups, and the kernels launched per step;
+- the device idle share, ``1 - kernel ms / step ms``.
+
+Last it times the augmentation alone (``augment_batch`` on the same batch,
+CUDA events over 10 calls), which the elementwise group contains. The last
+line is a JSON summary of all of it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke as cs
+from rtda_semanticsegmentation_tpu_torch.ops.augment import augment_batch
+
+PROFILED, TIMED, WARMUP = 3, 5, 3
+
+# (group, substrings of the kernel name), first match wins
+GROUPS = (
+    ("K1 lovasz_hist (+ its block reduce)", ("lovasz_hist",)),
+    ("K2 lovasz_bwd", ("lovasz_bwd",)),
+    ("convs, forward and backward (cuDNN / CUTLASS)",
+     ("cudnn", "cutlass", "xmma", "sm90", "conv", "wgrad", "dgrad", "implicit", "gemm")),
+    ("optimizer and grad norm (foreach)", ("multi_tensor", "foreach")),
+    ("bilinear upsample, forward and backward", ("upsample",)),
+    ("softmax and cross-entropy", ("softmax", "nll", "cross_entropy", "log_softmax")),
+    ("reductions (BN statistics, means, sums)", ("reduce",)),
+)
+
+
+def _group(name: str) -> str:
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "elementwise / copies (BN apply, ReLU, casts, augmentation)"
+
+
+def _device_us(event) -> float:
+    return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)
+
+
+def profile_steps(state, step, batch, gen) -> dict:
+    state, _ = step(state, batch, gen)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TIMED):
+        state, _ = step(state, batch, gen)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / TIMED
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED):
+            state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+    # device events, less the ranges of user annotations (Optimizer.step),
+    # which span kernels counted on their own
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and _device_us(e) > 0 and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no device time")
+    groups: dict = {}
+    for e in kernels:
+        g = _group(e.key)
+        groups[g] = groups.get(g, 0.0) + _device_us(e) / 1e3 / PROFILED
+    kernel_ms = sum(groups.values())
+    return {
+        "ms": ms,
+        "kernel_ms": kernel_ms,
+        "idle_share": max(0.0, 1.0 - kernel_ms / ms),
+        "kernels_per_step": sum(e.count for e in kernels) / PROFILED,
+        "groups": groups,
+        "top": [(e.key[:100], _device_us(e) / 1e3 / PROFILED, e.count / PROFILED)
+                for e in sorted(kernels, key=_device_us, reverse=True)[:12]],
+    }
+
+
+def main() -> None:
+    smi = cs.phase_device()
+    cfg = cs.get_preset("bisenet_source_aug")
+    cfg = cfg.replace(loss=dataclasses.replace(cfg.loss, use_lovasz=True))
+    h, w = cfg.train_size
+    b = cfg.train.batch_size
+    state, step = cs._train_setup(cfg, cs.DEV)
+    batch = cs._train_batch(b, h, w, 21, cs.DEV)
+    gen = torch.Generator(device=cs.DEV).manual_seed(7)
+    for _ in range(WARMUP):
+        state, _ = step(state, batch, gen)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(2):
+        r = profile_steps(state, step, batch, gen)
+        runs.append(r)
+        print(f"== train step b{b} {h}x{w}: {r['ms']:.3f} ms/step, {b * 1e3 / r['ms']:.1f} img/s "
+              f"(CUDA events, no profiler); kernel time {r['kernel_ms']:.3f} ms/step, "
+              f"{r['kernels_per_step']:.1f} kernels/step, idle share {r['idle_share']:.3f}")
+        for g, t in sorted(r["groups"].items(), key=lambda kv: -kv[1]):
+            print(f"  {t:8.3f} ms  {g}")
+        for name, t, n in r["top"]:
+            print(f"  {t:8.3f} ms x{n:5.1f}  {name}")
+    aug_ms = cs.cuda_ms(lambda: augment_batch(batch["image"], batch["label"], gen, cfg.augment), 10)
+    print(f"augmentation alone ({cfg.augment.pipeline}, {cfg.augment.aug_dtype}): {aug_ms:.3f} ms/step")
+    print(json.dumps({"card": smi, "runs": runs, "augment_ms": aug_ms}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,12 @@
 """Batch inference CLI of the port: segment a folder of images.
 
-Same flags and outputs as ``rtda_semanticsegmentation_tpu.cli.predict``
-(whose jax-free parser, image collection, decode and PNG writers it
-reuses): decode -> resize -> normalize -> forward (bf16, f32, or int8 PTQ
-calibrated on the first ``--calib_batches`` batches) -> argmax -> trainId
-PNG + colorized PNG (+ overlay). Runs on the first CUDA device when there
-is one, as the JAX CLI runs on jax's default backend; with none it warns
-and runs on the CPU, where the int8 convs take the kernel's plain version.
+Same flags and outputs as the JAX package's ``cli/predict.py``: decode ->
+resize -> normalize -> forward (bf16, f32, or int8 PTQ calibrated on the
+first ``--calib_batches`` batches) -> argmax -> trainId PNG + colorized PNG
+(+ overlay). ``--device`` picks the device, the counterpart of the JAX
+package's ``JAX_PLATFORMS``: ``cuda`` (the default) needs a CUDA device and
+raises without one; ``cpu`` runs there, where the int8 convs take the
+kernel's plain version.
 
 Usage::
 
@@ -16,21 +16,119 @@ Usage::
 
 from __future__ import annotations
 
+import argparse
+import glob
 import os
 import sys
 
 import numpy as np
 import torch
 
-from rtda_semanticsegmentation_tpu.cli.predict import (
-    _unique_stems,
-    _write_outputs,
-    build_parser,
-    collect_images,
-    decode_resize,
-)
-
 from ..config import AugmentConfig, ModelConfig
+from ..data.labels import train_ids_to_rgb
+
+IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
+
+
+def collect_images(path: str) -> list:
+    """A sorted list of image paths from a file, directory, or glob."""
+    if os.path.isfile(path):
+        return [path]
+    if os.path.isdir(path):
+        return sorted(os.path.join(path, f) for f in os.listdir(path) if f.lower().endswith(IMAGE_EXTS))
+    matches = sorted(glob.glob(path))
+    if not matches:
+        raise FileNotFoundError(f"no images found at {path!r}")
+    return matches
+
+
+def decode_resize(path: str, w: int, h: int):
+    """PIL decode -> RGB -> bilinear resize to (w, h). Returns
+    ``(uint8 HWC array, original (W, H))``."""
+    from PIL import Image
+
+    im = Image.open(path).convert("RGB")
+    orig = im.size
+    return np.asarray(im.resize((w, h), Image.BILINEAR), np.uint8), orig
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--images", required=True, help="Image file, directory, or glob.")
+    p.add_argument("--output", required=True, help="Output directory.")
+    p.add_argument("--artifact", default=None,
+                   help="Serve from an AOT artifact (not ported yet).")
+    p.add_argument("--model_name", choices=("bisenet", "deeplabv2"), default="bisenet")
+    p.add_argument("--bisenet_context_path", dest="context_path",
+                   choices=("resnet18", "resnet101"), default="resnet18")
+    p.add_argument("--checkpoint_dir", default=None,
+                   help="Checkpoint root (not ported yet). Omit to run with random weights.")
+    p.add_argument("--run_name", default="", help="Run subdirectory under --checkpoint_dir.")
+    p.add_argument("--adversarial", action="store_true",
+                   help="Checkpoint came from adversarial training.")
+    p.add_argument("--restore", choices=("best", "latest"), default="best")
+    p.add_argument("--pretrained_backbone", default=None,
+                   help="Converted .npz weights (convert_torch_weights) grafted into the model.")
+    p.add_argument("--size", type=int, nargs=2, default=(512, 1024), metavar=("H", "W"),
+                   help="Model input size.")
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--precision", choices=("bf16", "f32", "int8"), default="bf16",
+                   help="int8 = post-training-quantized serving path, calibrated on the "
+                        "first --calib_batches batches of the inputs themselves.")
+    p.add_argument("--calib_batches", type=int, default=2)
+    p.add_argument("--quant_clip", type=float, default=None,
+                   help="int8 activation-scale clip quantile (default ModelConfig.quant_clip).")
+    p.add_argument("--quant_min_ch", type=int, default=None,
+                   help="Only convs with at least this many input channels run on the s8 "
+                        "path (default ModelConfig.quant_min_ch).")
+    p.add_argument("--quant_skip", type=str, nargs="*", default=None,
+                   help="Module-path substrings kept on the bf16 path in int8 mode.")
+    p.add_argument("--overlay", action="store_true",
+                   help="Also write a 60/40 image/mask blend per input.")
+    p.add_argument("--no_resize_back", action="store_true",
+                   help="Keep masks at the model size instead of each input's own.")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="Where to run: cuda needs a CUDA device and raises without one.")
+    return p
+
+
+def _unique_stems(paths) -> dict:
+    """Unique output stems: inputs differing only by extension (a.png,
+    a.jpg) must not clobber each other's masks."""
+    stems, seen = {}, {}
+    for path in paths:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        if stem in seen:
+            seen[stem] += 1
+            stem = f"{stem}_{seen[stem]}"
+        else:
+            seen[stem] = 0
+        stems[path] = stem
+    return stems
+
+
+def _write_outputs(args, decoded, chunk, preds, stems, h, w) -> int:
+    """Write trainId/color (+ optional overlay) PNGs for one batch."""
+    from PIL import Image
+
+    written = 0
+    for (_, orig), path, pred in zip(decoded, chunk, preds):
+        stem = stems[path]
+        mask = Image.fromarray(pred, mode="L")
+        color = Image.fromarray(train_ids_to_rgb(pred))
+        if not args.no_resize_back and orig != (w, h):
+            mask = mask.resize(orig, Image.NEAREST)
+            color = color.resize(orig, Image.NEAREST)
+        mask.save(os.path.join(args.output, f"{stem}_trainids.png"))
+        color.save(os.path.join(args.output, f"{stem}_color.png"))
+        if args.overlay:
+            base = Image.open(path).convert("RGB")
+            if args.no_resize_back:
+                base = base.resize((w, h), Image.BILINEAR)
+            blend = (0.6 * np.asarray(base, np.float32) + 0.4 * np.asarray(color, np.float32)).astype(np.uint8)
+            Image.fromarray(blend).save(os.path.join(args.output, f"{stem}_overlay.png"))
+        written += 1
+    return written
 
 
 def _not_ported(what: str):
@@ -64,10 +162,9 @@ def main(argv=None) -> int:
         **({"quant_skip": tuple(args.quant_skip)} if args.quant_skip is not None else {}),
     )
     aug = AugmentConfig()
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    if device.type == "cpu":
-        print("WARNING: no CUDA device; running on the CPU, where the int8 "
-              "convs take the kernel's plain version", file=sys.stderr)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")
+    device = torch.device(args.device)
 
     paths = collect_images(args.images)
     if not paths:
@@ -77,7 +174,7 @@ def main(argv=None) -> int:
           f"({args.precision}, {h}x{w}, batch {args.batch_size}, {device})",
           file=sys.stderr)
 
-    variables = init_model(build_model(mcfg), torch.Generator().manual_seed(0))
+    variables = init_model(build_model(mcfg, device), torch.Generator().manual_seed(0))
     if args.pretrained_backbone:
         variables = load_npz_into_state(variables, args.pretrained_backbone, mcfg.name)
     else:

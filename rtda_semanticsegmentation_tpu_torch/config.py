@@ -1,17 +1,18 @@
-"""Configuration of the ported slice.
+"""Configuration of the ported slices.
 
-The fields of the JAX package's ``config.py::ModelConfig`` and
-``AugmentConfig`` that the port reads, with the same names and defaults
-(``tests/test_torch_bisenet.py`` holds them equal). The port keeps its own
-copy so that its serving path, and ``chip_smoke.py`` on a GPU machine,
-import nothing of the JAX package. The port's functions read these configs
-by attribute, so the JAX package's own config objects work as well.
+The fields of the JAX package's ``config.py`` dataclasses that the port
+reads, with the same names and defaults (``tests/test_torch_bisenet.py``
+holds them equal). The port keeps its own copy so that it, and
+``chip_smoke.py`` on a GPU machine, import nothing of the JAX package. The
+port's functions read these configs by attribute, so the JAX package's own
+config objects work as well.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -30,6 +31,127 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class AugmentConfig:
+    """The on-device train augmentation (``ops/augment.py``): the stochastic
+    ops fire with probability ``prob`` each, in the order [HFlip] ->
+    ColorJitter -> ISONoise -> CoarseDropout, then Normalize."""
+
+    pipeline: str = "all_four_combined"
+    # one of: no_new_aug | hflip_only | colorjitter_only | isonoise_only |
+    #         coarsedropout_only | all_four_combined | all_four_plus_hflip
+    prob: float = 0.5
+    cj_brightness: float = 0.3
+    cj_contrast: float = 0.3
+    cj_saturation: float = 0.3
+    cj_hue: float = 0.1
+    iso_intensity: Tuple[float, float] = (0.1, 0.3)
+    iso_color_shift: Tuple[float, float] = (0.01, 0.05)
+    cd_max_holes: int = 8
+    cd_min_holes: int = 1
+    cd_hole_size: Tuple[int, int] = (20, 60)
+    cd_fill: float = 0.0
     # ImageNet normalization of the input frames
     norm_mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
     norm_std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+    # storage dtype of the stochastic chain: bfloat16 | float32 | uint8
+    aug_dtype: str = "bfloat16"
+
+    @property
+    def flags(self) -> Tuple[bool, bool, bool, bool]:
+        """(hflip, colorjitter, isonoise, coarsedropout) enabled switches."""
+        p = self.pipeline
+        return (
+            p in ("hflip_only", "all_four_plus_hflip"),
+            p in ("colorjitter_only", "all_four_combined", "all_four_plus_hflip"),
+            p in ("isonoise_only", "all_four_combined", "all_four_plus_hflip"),
+            p in ("coarsedropout_only", "all_four_combined", "all_four_plus_hflip"),
+        )
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    train_dataset: str = "gta5"  # gta5 | cityscapes | synthetic
+    gta5_size: Tuple[int, int] = (720, 1280)  # (H, W)
+    cityscapes_size: Tuple[int, int] = (512, 1024)
+    train_size_override: Optional[Tuple[int, int]] = None
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adam"  # sgd | adam
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-4  # L2 into the gradient, as torch's SGD/Adam
+    sgd_momentum: float = 0.9
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    poly_power: float = 0.9
+
+
+@dataclass(frozen=True)
+class AdversarialConfig:
+    enabled: bool = False  # the adversarial modes are not ported yet
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    ignore_index: int = 255
+    use_lovasz: bool = False
+    lovasz_weight: float = 0.5  # L = L_ce + w * L_lovasz
+    lovasz_impl: str = "binned"  # binned (kernels K1/K2) | sort (exact)
+    lovasz_interp: bool = True  # fg/bg-split midpoint backward
+    lovasz_bins: int = 256
+    aux_weight: float = 0.0  # BiSeNet aux-head CE weight; 0 = reference parity
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 8
+    remat: bool = False  # not ported: True raises in make_train_step
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    data: DataConfig = field(default_factory=DataConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    adversarial: AdversarialConfig = field(default_factory=AdversarialConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    augment: AugmentConfig = field(default_factory=AugmentConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    @property
+    def train_mode(self) -> str:
+        """One of vanilla | lovasz | adversarial | adversarial_lovasz."""
+        if self.adversarial.enabled:
+            return "adversarial_lovasz" if self.loss.use_lovasz else "adversarial"
+        return "lovasz" if self.loss.use_lovasz else "vanilla"
+
+    @property
+    def train_size(self) -> Tuple[int, int]:
+        if self.data.train_size_override is not None:
+            return self.data.train_size_override
+        if self.data.train_dataset == "cityscapes":
+            return self.data.cityscapes_size
+        return self.data.gta5_size
+
+    def replace(self, **kw) -> "ExperimentConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def get_preset(name: str) -> ExperimentConfig:
+    """The JAX package's BiSeNet source-only presets; the others are not
+    ported yet."""
+    base = ExperimentConfig()
+    if name == "bisenet_source_small":
+        return base.replace(
+            data=dataclasses.replace(base.data, gta5_size=(256, 512), cityscapes_size=(256, 512)),
+            augment=dataclasses.replace(base.augment, pipeline="no_new_aug"),
+            train=dataclasses.replace(base.train, batch_size=2),
+        )
+    if name == "bisenet_source_aug":
+        return base.replace(
+            data=dataclasses.replace(base.data, gta5_size=(512, 1024)),
+            augment=dataclasses.replace(base.augment, pipeline="all_four_combined"),
+        )
+    if name in ("deeplabv2_cityscapes", "bisenet_adversarial", "bisenet_adversarial_lovasz"):
+        raise NotImplementedError(f"preset {name!r} is not ported to the PyTorch package yet")
+    raise ValueError(f"Unknown preset {name!r}")

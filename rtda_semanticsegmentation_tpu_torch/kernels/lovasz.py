@@ -1,0 +1,189 @@
+"""Binned Lovász histogram (K1) and backward (K2) as CUDA kernels.
+
+Counterparts of ``rtda_semanticsegmentation_tpu/ops/pallas_lovasz.py``:
+``lovasz_radix_hist`` (K1) and ``lovasz_radix_bwd`` (K2). Both take the
+probabilities as ``(B, C, N)`` f32, the layout of the port's NCHW
+softmax, so class rows are contiguous per image and no transpose is
+needed; at ``B == 1`` that is exactly the JAX package's ``(C, P)``.
+
+Per class ``c`` and valid pixel (``label != ignore``), with
+``fg = label == c``, ``e = |fg - p|`` and bucket
+``k = min(int(e * bins), bins - 1)``:
+
+- :func:`lovasz_hist` sums, into ``(C, 3, bins)`` f32, the count, the
+  foreground count and the bf16-rounded ``e`` of bucket ``k``;
+- :func:`lovasz_bwd` writes ``table[c, k] * (1 - 2 fg)`` per pixel, the
+  table rounded to bf16; with ``interp`` the table is ``(C, 2, bins)`` and
+  a pixel reads row 0 if it is foreground, row 1 if not. Invalid pixels get
+  0.
+
+On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
+tensor it launches the kernel in ``csrc/lovasz.cu`` (built on first use,
+see :mod:`.build`) or raises. ``ignore=-1`` stands for "no ignore label".
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import load_library
+
+SOURCE = "csrc/lovasz.cu"
+
+# Launches of the CUDA kernels in this process; the plain versions never count.
+hist_launches = 0
+bwd_launches = 0
+
+_THREADS = 256
+_MAX_CLASSES = 32
+_MAX_SMEM = 232448  # bytes of dynamic shared memory an H100 block may use
+_lib = None
+
+
+def _check(probas, labels, bins):
+    if probas.dtype != torch.float32 or probas.dim() != 3:
+        raise ValueError(f"probas must be (B, C, N) f32, got {probas.dtype} {tuple(probas.shape)}")
+    b, c, n = probas.shape
+    if labels.dtype != torch.int32 or tuple(labels.shape) != (b, n):
+        raise ValueError(f"labels must be ({b}, {n}) int32, got {labels.dtype} {tuple(labels.shape)}")
+    if bins <= 0 or bins & (bins - 1):
+        raise ValueError(f"lovasz bins must be a power of two, got {bins}")
+    return b, c, n
+
+
+def _buckets(probas, labels, bins, ignore):
+    """(fg, e, bucket, valid) per (image, class, pixel), as both kernels
+    compute them."""
+    c = probas.shape[1]
+    classes = torch.arange(c, device=probas.device, dtype=torch.int32).view(1, c, 1)
+    fg = labels.unsqueeze(1) == classes
+    e = (fg.to(torch.float32) - probas).abs()
+    k = (e * bins).to(torch.int32).clamp_(0, bins - 1)
+    valid = (labels != ignore).unsqueeze(1).expand_as(fg)
+    return fg, e, k, valid
+
+
+def lovasz_hist_plain(probas, labels, bins: int, ignore: int) -> torch.Tensor:
+    """K1 in plain PyTorch, on any device: one ``bincount`` over
+    ``class * bins + bucket`` per row. Counts are exact; the error sums add
+    the bf16-rounded errors in f32, in the order bincount takes."""
+    _, c, _ = _check(probas, labels, bins)
+    fg, e, k, valid = _buckets(probas, labels, bins, ignore)
+    idx = (torch.arange(c, device=probas.device).view(1, c, 1) * bins + k)[valid]
+    e16 = e.to(torch.bfloat16).to(torch.float32)[valid]
+    size = c * bins
+    rows = (
+        torch.bincount(idx, minlength=size),
+        torch.bincount(idx[fg[valid]], minlength=size),
+        torch.bincount(idx, weights=e16, minlength=size),
+    )
+    return torch.stack([r.to(torch.float32).view(c, bins) for r in rows], dim=1)
+
+
+def _check_table(table, c, bins, interp):
+    want = (c, 2, bins) if interp else (c, bins)
+    if table.dtype != torch.float32 or tuple(table.shape) != want:
+        raise ValueError(f"table must be f32 {want}, got {table.dtype} {tuple(table.shape)}")
+
+
+def lovasz_bwd_plain(probas, labels, table, bins: int, ignore: int, interp: bool) -> torch.Tensor:
+    """K2 in plain PyTorch, on any device: a gather from the bf16-rounded
+    table. Every operation is exact in f32, so the kernel must match it bit
+    for bit."""
+    _, c, n = _check(probas, labels, bins)
+    _check_table(table, c, bins, interp)
+    fg, _, k, valid = _buckets(probas, labels, bins, ignore)
+    tab = table.to(torch.bfloat16).to(torch.float32).reshape(-1)
+    rows = torch.arange(c, device=probas.device).view(1, c, 1)
+    if interp:
+        rows = rows * 2 + (~fg).to(torch.int64)
+    coef = tab[rows * bins + k]
+    out = coef * (1.0 - 2.0 * fg.to(torch.float32))
+    return torch.where(valid, out, torch.zeros((), device=probas.device))
+
+
+def _cuda_operands(probas, labels, *extra):
+    for t in (labels, *extra):
+        if t.device != probas.device:
+            raise ValueError(f"all operands must be on {probas.device}, got {t.device}")
+    for t in (probas, labels, *extra):
+        if not t.is_contiguous():
+            raise ValueError("the Lovász kernels need contiguous operands")
+    if probas.shape[1] > _MAX_CLASSES:
+        raise ValueError(f"the Lovász kernels take at most {_MAX_CLASSES} classes")
+    if probas.numel() >= 2**31:
+        raise ValueError("too many elements for the kernels' 32-bit indices")
+
+
+def _grid(device, per_sm: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count * per_sm
+
+
+def lovasz_hist(probas, labels, bins: int, ignore: int) -> torch.Tensor:
+    """(B, C, N) f32 probabilities, (B, N) int32 labels -> (C, 3, bins) f32
+    [count, fg count, sum of bf16(error)] per class and error bucket."""
+    if probas.device.type == "cpu":
+        return lovasz_hist_plain(probas, labels, bins, ignore)
+    if probas.device.type != "cuda":
+        raise ValueError(f"lovasz_hist runs on CPU or CUDA tensors, got {probas.device}")
+    b, c, n = _check(probas, labels, bins)
+    _cuda_operands(probas, labels)
+    if 3 * c * bins * 4 > _MAX_SMEM:
+        raise ValueError(f"a ({c}, 3, {bins}) histogram exceeds a block's shared memory")
+    # one wave: the 58 KB per-block histogram fits three blocks on an SM
+    blocks = max(1, min(_grid(probas.device, 3), -(-b * n // _THREADS)))
+    partial = torch.empty((blocks, 3, c, bins), device=probas.device, dtype=torch.int32)
+    out = torch.empty((c, 3, bins), device=probas.device, dtype=torch.float32)
+    lib = _library()
+    with torch.cuda.device(probas.device):
+        err = lib.lovasz_hist_launch(
+            probas.data_ptr(), labels.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            b, c, n, bins, ignore, blocks, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"lovasz_hist launch failed: CUDA error {err}")
+    global hist_launches
+    hist_launches += 1
+    return out
+
+
+def lovasz_bwd(probas, labels, table, bins: int, ignore: int, interp: bool) -> torch.Tensor:
+    """(B, C, N) f32 gradient of the binned Lovász loss w.r.t. the
+    probabilities, from the per-bucket coefficient ``table`` ((C, 2, bins)
+    with ``interp``, else (C, bins); cotangent and normalization folded in)."""
+    if probas.device.type == "cpu":
+        return lovasz_bwd_plain(probas, labels, table, bins, ignore, interp)
+    if probas.device.type != "cuda":
+        raise ValueError(f"lovasz_bwd runs on CPU or CUDA tensors, got {probas.device}")
+    b, c, n = _check(probas, labels, bins)
+    _check_table(table, c, bins, interp)
+    _cuda_operands(probas, labels, table)
+    out = torch.empty_like(probas)
+    blocks = max(1, min(_grid(probas.device, 4), -(-b * n // _THREADS)))
+    lib = _library()
+    with torch.cuda.device(probas.device):
+        err = lib.lovasz_bwd_launch(
+            probas.data_ptr(), labels.data_ptr(), table.data_ptr(), out.data_ptr(),
+            b, c, n, bins, ignore, int(interp), blocks, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"lovasz_bwd launch failed: CUDA error {err}")
+    global bwd_launches
+    bwd_launches += 1
+    return out
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = load_library(SOURCE)
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        lib.lovasz_hist_launch.argtypes = [p, p, p, p] + [i] * 6 + [p]
+        lib.lovasz_hist_launch.restype = i
+        lib.lovasz_bwd_launch.argtypes = [p, p, p, p] + [i] * 7 + [p]
+        lib.lovasz_bwd_launch.restype = i
+        _lib = lib
+    return _lib

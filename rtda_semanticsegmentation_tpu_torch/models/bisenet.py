@@ -1,10 +1,12 @@
-"""BiSeNet eval forward (port of the JAX ``models/bisenet.py``).
+"""BiSeNet (port of the JAX ``models/bisenet.py``).
 
 Spatial path (3x stride-2 ConvBN, 3->64->128->256 at 1/8), ResNet-18
 context path, two attention refinement modules, the feature fusion module
 and the 1x1 ``final_conv``, which runs at 1/8 before the x8 bilinear
-upsample (a 1x1 conv and a bilinear resize commute exactly). The aux heads
-exist only in training and are absent here, as in the JAX eval tree.
+upsample (a 1x1 conv and a bilinear resize commute exactly). The aux
+supervision heads (``supervision1``/``supervision2``, 1x1 convs on the two
+refined context features) exist only in a model built for training, as in
+the JAX train tree.
 """
 
 from __future__ import annotations
@@ -62,10 +64,11 @@ class FeatureFusionModule(nn.Module):
 
 
 class BiSeNet(nn.Module):
-    """``forward(x)`` takes NCHW float input and returns NCHW logits."""
+    """``forward(x)`` takes NCHW float input and returns NCHW logits in eval
+    mode, ``(logits, sup1, sup2)`` in train mode (``self.training``)."""
 
     def __init__(self, num_classes=19, context_path="resnet18", *, dtype=torch.float32,
-                 quant=QuantPolicy()):
+                 quant=QuantPolicy(), aux_heads=False):
         super().__init__()
         if context_path != "resnet18":
             raise NotImplementedError(
@@ -77,16 +80,29 @@ class BiSeNet(nn.Module):
         self.arm2 = AttentionRefinementModule(512, dtype=dtype)
         self.ffm = FeatureFusionModule(256 + 256 + 512, num_classes, dtype=dtype, quant=quant)
         self.final_conv = Conv(num_classes, num_classes, 1, dtype=dtype)
+        if aux_heads:  # registered last: a seed draws the same weights as for eval
+            self.supervision1 = Conv(256, num_classes, 1, dtype=dtype)
+            self.supervision2 = Conv(512, num_classes, 1, dtype=dtype)
 
-    def forward(self, x, upsample: bool = True):
+    def forward(self, x, upsample: bool = True, aux: bool = True):
+        """``upsample=False`` (eval only) returns the 1/8 logits. In train
+        mode the aux heads are computed, upsampled to the input size, only
+        when ``aux`` is set (an aux loss weight of 0 needs none; the JAX
+        package's compiler drops them); otherwise ``sup1``/``sup2`` are
+        None."""
         h, w = x.shape[2], x.shape[3]
         sx = self.spatial_path(x)
         cx1, cx2, tail = self.context_path(x)
         cx1 = self.arm1(cx1)
         cx2 = self.arm2(cx2) * tail.to(cx2.dtype)
         target = (sx.shape[2], sx.shape[3])
-        cx = torch.cat([resize_bilinear(cx1, target), resize_bilinear(cx2, target)], dim=1)
-        result = self.final_conv(self.ffm(sx, cx))
-        if not upsample:
+        cx1, cx2 = resize_bilinear(cx1, target), resize_bilinear(cx2, target)
+        sups = (None, None)
+        if self.training and aux:
+            sups = (resize_bilinear(self.supervision1(cx1), (h, w)),
+                    resize_bilinear(self.supervision2(cx2), (h, w)))
+        result = self.final_conv(self.ffm(sx, torch.cat([cx1, cx2], dim=1)))
+        if not self.training and not upsample:
             return result
-        return resize_bilinear(result, (h, w))
+        result = resize_bilinear(result, (h, w))
+        return (result, *sups) if self.training else result

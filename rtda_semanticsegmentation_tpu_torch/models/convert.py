@@ -80,17 +80,18 @@ def load_npz_into_state(state: Mapping[str, torch.Tensor], path: str, model_name
     """Graft a converted ``.npz`` (``cli/convert_torch_weights`` output) into
     a port state_dict, with the JAX package's semantics: shapes are checked,
     an unknown key raises, a model key the file lacks keeps its value, and
-    ``params/supervision*`` (train-only aux heads) are skipped."""
+    ``params/supervision*`` (the train-only aux heads) load into a train
+    model and are skipped for an eval model."""
     arrays = np.load(path)
     new = dict(state)
     loaded = 0
     for key in arrays.files:
-        if key.startswith("params/supervision"):
-            continue
         try:
             ((port_key, tensor),) = from_jax_variables({key: arrays[key]}).items()
         except KeyError:
             port_key = None
+        if port_key not in state and key.startswith("params/supervision"):
+            continue
         if port_key not in state:
             raise KeyError(
                 f"npz key {key!r} not found in {model_name} variables - "

@@ -18,11 +18,14 @@ from .convert import QUANT_FROZEN, QUANT_STATS
 from .layers import Conv, QuantPolicy
 
 
-def build_model(cfg: ModelConfig, device="cpu") -> BiSeNet:
-    """The generator named by ``cfg.name``, with uninitialized parameters.
+def build_model(cfg: ModelConfig, device="cuda", train: bool = False) -> BiSeNet:
+    """The generator named by ``cfg.name``, with uninitialized parameters,
+    on ``device``.
 
     ``cfg.quant``: ``none``, ``calib`` or ``int8_frozen`` (set by
-    ``models/quantize.py``)."""
+    ``models/quantize.py``). ``train`` builds the train tree (with the aux
+    supervision heads) in train mode; otherwise the eval tree in eval
+    mode."""
     if cfg.name != "bisenet":
         raise NotImplementedError(f"model {cfg.name!r} is not ported yet (only bisenet)")
     if cfg.quant not in ("none", "calib", "int8_frozen"):
@@ -30,9 +33,11 @@ def build_model(cfg: ModelConfig, device="cpu") -> BiSeNet:
             f"quant mode {cfg.quant!r} is not ported (none, calib, int8_frozen)"
         )
     quant = QuantPolicy(cfg.quant, cfg.quant_min_ch, cfg.quant_clip, tuple(cfg.quant_skip))
+    if train and cfg.quant != "none":
+        raise ValueError("training runs quant='none'")
     model = BiSeNet(cfg.num_classes, cfg.context_path,
-                    dtype=getattr(torch, cfg.compute_dtype), quant=quant)
-    return model.to(device).eval()
+                    dtype=getattr(torch, cfg.compute_dtype), quant=quant, aux_heads=train)
+    return model.to(device).train(train)
 
 
 @torch.no_grad()

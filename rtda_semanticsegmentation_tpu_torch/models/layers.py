@@ -1,8 +1,9 @@
-"""Shared NCHW building blocks, eval form (port of the JAX ``models/layers.py``).
+"""Shared NCHW building blocks (port of the JAX ``models/layers.py``).
 
 Conventions, as in the JAX package: parameters are f32 and convs compute in
-the model's compute dtype; BatchNorm statistics fold into a per-channel
-scale/shift in f32 that is applied in the activation dtype. Activations are
+the model's compute dtype; BatchNorm (running statistics in eval, batch
+statistics in train) becomes a per-channel scale/shift computed in f32 and
+applied in the activation dtype. Activations are
 NCHW tensors, kept in ``channels_last`` memory on the GPU by the serving
 path, so the int8 kernel's NHWC view of them is free.
 
@@ -123,22 +124,44 @@ def fold_batch_norm(scale, bias, mean, var, eps: float = 1e-5):
 
 
 class FoldableBatchNorm(nn.Module):
-    """Eval-form BatchNorm: running statistics and affine fold into a
-    per-channel scale/shift in f32, applied in the input dtype."""
+    """BatchNorm applied as a per-channel ``x * mul + add`` in the input
+    dtype, with ``mul`` and ``add`` computed in at least f32.
 
-    def __init__(self, ch, eps=1e-5):
+    - Eval: from the running statistics and the affine parameters.
+    - Train (``self.training``), as the JAX ``FoldableBatchNorm`` and not as
+      ``nn.BatchNorm2d`` (which rounds bf16 and computes the variance
+      differently): batch ``mean = E[x]`` and ``var = E[x^2] - mean^2``
+      over (N, H, W) in at least f32; the running statistics move with
+      flax momentum 0.9 (torch 0.1) and track the unbiased variance,
+      ``var * n / (n - 1)``. A gate BN over (B, C, 1, 1) reduces over the
+      batch only (n = B).
+    """
+
+    def __init__(self, ch, eps=1e-5, momentum=0.9):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
 
     def forward(self, x):
-        inv, shift = fold_batch_norm(
-            self.weight, self.bias, self.running_mean, self.running_var, self.eps
-        )
-        return x * inv.to(x.dtype).view(1, -1, 1, 1) + shift.to(x.dtype).view(1, -1, 1, 1)
+        if not self.training:
+            mul, add = fold_batch_norm(
+                self.weight, self.bias, self.running_mean, self.running_var, self.eps
+            )
+        else:
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean(dim=(0, 2, 3))
+            var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var * (n / max(n - 1, 1)))
+            mul = self.weight * torch.rsqrt(var + self.eps)
+            add = self.bias - mean * mul
+        return x * mul.to(x.dtype).view(1, -1, 1, 1) + add.to(x.dtype).view(1, -1, 1, 1)
 
 
 class ConvBN(nn.Module):

@@ -28,7 +28,7 @@ from .factory import build_model, load_variables
 from .layers import fold_batch_norm
 
 
-def calibrate(model_cfg: ModelConfig, variables: dict, batches: Iterable, device="cpu") -> dict:
+def calibrate(model_cfg: ModelConfig, variables: dict, batches: Iterable, device="cuda") -> dict:
     """Run calibration forwards; returns ``variables`` + the quant stats.
 
     ``batches`` yields normalized float images (B, H, W, 3), NHWC as in the
@@ -75,7 +75,7 @@ def freeze(model_cfg: ModelConfig, variables: dict) -> dict:
     return out
 
 
-def quantized_model(model_cfg: ModelConfig, frozen: bool = True, device="cpu"):
+def quantized_model(model_cfg: ModelConfig, frozen: bool = True, device="cuda"):
     """The generator with its quantized convs on the int8 kernel; load the
     :func:`freeze` output into it with ``factory.load_variables``."""
     if not frozen:

@@ -1,0 +1,181 @@
+"""Segmentation losses (port of the JAX ``ops/losses.py``).
+
+The port's logits and probabilities are NCHW: the class axis is 1, as in
+PyTorch's own losses, where the JAX package's are channel-last. Every loss
+computes in at least f32.
+
+- :func:`cross_entropy_with_ignore`: ``nn.CrossEntropyLoss(ignore_index)``
+  with the JAX package's reductions; an all-ignored batch gives 0.
+- :func:`lovasz_softmax`: the exact descending-sort Lovász-Softmax, the
+  parity path.
+- :func:`lovasz_softmax_binned`: the counting-sort Lovász-Softmax of the main
+  path. Its forward histograms run on kernel K1 and its backward on kernel
+  K2 (``kernels/lovasz.py``); the post-processing over (C, bins) is plain
+  PyTorch.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import lovasz as klov
+
+
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def cross_entropy_with_ignore(logits, labels, ignore_index: int = 255, reduction: str = "mean"):
+    """Softmax cross-entropy over (B, C, ...) logits with an ignore label.
+
+    ``reduction``: ``mean`` over every valid pixel of the batch,
+    ``mean_per_image`` (the mean over each image's valid pixels, then over
+    the images) or ``none`` (per-pixel losses, 0 at ignored pixels)."""
+    labels = labels.long()
+    valid = labels != ignore_index
+    pixel = F.cross_entropy(_at_least_f32(logits), torch.where(valid, labels, 0), reduction="none")
+    pixel = torch.where(valid, pixel, torch.zeros((), dtype=pixel.dtype, device=pixel.device))
+    if reduction == "none":
+        return pixel
+    if reduction == "mean":
+        return pixel.sum() / valid.sum().clamp_min(1)
+    if reduction == "mean_per_image":
+        b = pixel.shape[0]
+        per_img = pixel.reshape(b, -1).sum(1) / valid.reshape(b, -1).sum(1).clamp_min(1)
+        return per_img.mean()
+    raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def _class_rows(probas, labels, ignore_index):
+    """(C, P) probabilities in at least f32, (P,) labels, (P,) validity."""
+    c = probas.shape[1]
+    rows = _at_least_f32(probas).transpose(0, 1).reshape(c, -1)
+    labels = labels.reshape(-1)
+    if ignore_index is None:
+        valid = torch.ones_like(labels, dtype=torch.bool)
+    else:
+        valid = labels != ignore_index
+    return rows, labels, valid
+
+
+def lovasz_softmax(probas, labels, ignore_index=255, classes: str = "present"):
+    """Exact Lovász-Softmax over (B, C, H, W) probabilities: each class's
+    errors in descending order (a stable sort, ignored pixels last with no
+    contribution), averaged over the classes present (``present``) or all
+    classes (``all``)."""
+    if classes not in ("present", "all"):
+        raise ValueError(f"classes must be 'present' or 'all', got {classes!r}")
+    p, labels, valid = _class_rows(probas, labels, ignore_index)
+    c = p.shape[0]
+    validf = valid.to(p.dtype)
+    fg = (labels.unsqueeze(0) == torch.arange(c, device=p.device).unsqueeze(1)).to(p.dtype) * validf
+    errors = (fg - p).abs() * validf
+    key = -torch.where(valid.unsqueeze(0), errors, torch.full_like(errors, -1.0))
+    order = torch.sort(key.detach(), dim=1, stable=True).indices
+    errors_sorted = errors.gather(1, order)
+    fg_sorted = fg.gather(1, order)
+    gts = fg.sum(1, keepdim=True)
+    intersection = gts - fg_sorted.cumsum(1)
+    union = gts + (1.0 - fg_sorted).cumsum(1)
+    jaccard = 1.0 - intersection / union
+    grad = torch.cat([jaccard[:, :1], jaccard[:, 1:] - jaccard[:, :-1]], dim=1)
+    loss_c = (errors_sorted * grad).sum(1)
+    present = (gts[:, 0] > 0).to(p.dtype) if classes == "present" else torch.ones_like(loss_c)
+    present_cnt = present.sum()
+    loss = (loss_c * present).sum() / present_cnt.clamp_min(1.0)
+    return torch.where(present_cnt > 0, loss, torch.zeros_like(loss))
+
+
+def _radix_factors(bins: int) -> tuple:
+    """Factor the bin count into two near-square radices (k1 * k2 == bins)."""
+    if bins <= 0 or bins & (bins - 1):
+        raise ValueError(f"lovasz bins must be a power of two, got {bins}")
+    k1 = 1
+    while k1 * k1 < bins:
+        k1 *= 2
+    return k1, bins // k1
+
+
+def _kernel_operands(probas, labels, ignore_index):
+    """(B, C, N) f32 probabilities, (B, N) int32 labels and the kernels'
+    ignore label (-1 for none)."""
+    b, c = probas.shape[:2]
+    p = probas.reshape(b, c, -1).to(torch.float32).contiguous()
+    lab = labels.reshape(b, -1).to(torch.int32).contiguous()
+    return p, lab, -1 if ignore_index is None else ignore_index
+
+
+def _binned_lovasz_forward(hists, classes: str, interp: bool):
+    """Lovász post-processing of the K1 histograms ``(C, 3, bins)``: returns
+    (loss, tables, present_cnt), the JAX package's
+    ``_binned_lovasz_forward`` op for op.
+
+    ``tables`` is (C, 2, bins), the fg/bg-split coefficients at each
+    bucket's rank-span midpoint, with ``interp``; else (C, bins), the
+    bucket-averaged coefficient. Both in ascending bucket order and zero for
+    classes outside the mean."""
+    if classes not in ("present", "all"):
+        raise ValueError(f"classes must be 'present' or 'all', got {classes!r}")
+    n = hists[:, 0].flip(1)
+    f = hists[:, 1].flip(1)
+    se = hists[:, 2].flip(1)
+    gts = f.sum(1, keepdim=True)
+    cn = n.cumsum(1)
+    cf = f.cumsum(1)
+    intersection = gts - cf
+    union = gts + cn - cf
+    zero = torch.zeros((), device=hists.device)
+    jaccard = torch.where(union > 0, 1.0 - intersection / union.clamp_min(1.0), zero)
+    delta = torch.cat([jaccard[:, :1], jaccard[:, 1:] - jaccard[:, :-1]], dim=1)
+    inv_n = torch.where(n > 0, 1.0 / n.clamp_min(1.0), zero)
+    coef_desc = delta * inv_n
+    loss_c = (se * coef_desc).sum(1)
+    present = (gts[:, 0] > 0).to(torch.float32) if classes == "present" else torch.ones_like(loss_c)
+    present_cnt = present.sum()
+    loss = torch.where(present_cnt > 0, (loss_c * present).sum() / present_cnt.clamp_min(1.0), zero)
+    if interp:
+        cn0 = cn - n
+        cf0 = cf - f
+        um = gts + (cn0 - cf0) + 0.5 * (n - f)
+        im = gts - cf0 - 0.5 * f
+        ok = (n > 0) & ((cn0 - cf0 + gts) > 0)
+        ums = um.clamp_min(0.5)
+        c_fg = torch.where(ok, 1.0 / ums, coef_desc)
+        c_bg = torch.where(ok, im / (ums * ums), coef_desc)
+        tables = torch.stack([c_fg.flip(1) * present[:, None], c_bg.flip(1) * present[:, None]], dim=1)
+        return loss, tables, present_cnt
+    return loss, coef_desc.flip(1) * present[:, None], present_cnt
+
+
+class LovaszSoftmaxBinned(torch.autograd.Function):
+    """Forward: K1 histograms + post-processing. Backward: the cotangent and
+    ``1 / present_cnt`` fold into the tables, then K2. Gradient for the
+    probabilities only."""
+
+    @staticmethod
+    def forward(ctx, probas, labels, ignore_index, classes, bins, interp):
+        p, lab, ignore = _kernel_operands(probas, labels, ignore_index)
+        hists = klov.lovasz_hist(p, lab, bins, ignore)
+        loss, tables, present_cnt = _binned_lovasz_forward(hists, classes, interp)
+        ctx.save_for_backward(p, lab, tables, present_cnt)
+        ctx.meta = (probas.shape, probas.dtype, ignore, bins, interp)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        p, lab, tables, present_cnt = ctx.saved_tensors
+        shape, dtype, ignore, bins, interp = ctx.meta
+        scale = torch.where(present_cnt > 0, g / present_cnt.clamp_min(1.0), torch.zeros_like(g))
+        grad = klov.lovasz_bwd(p, lab, (tables * scale).contiguous(), bins, ignore, interp)
+        return grad.reshape(shape).to(dtype), None, None, None, None, None
+
+
+def lovasz_softmax_binned(probas, labels, ignore_index=255, classes: str = "present",
+                          bins: int = 256, interp: bool = True):
+    """Counting-sort Lovász-Softmax over (B, C, H, W) probabilities:
+    errors binned into ``bins`` equal-width buckets, processed in
+    descending order; the JAX package's ``lovasz_softmax_binned`` with the
+    same ``classes``, ``bins`` and ``interp`` semantics."""
+    _radix_factors(bins)
+    return LovaszSoftmaxBinned.apply(probas, labels, ignore_index, classes, bins, interp)

@@ -12,7 +12,7 @@ from .models.quantize import freeze, quantized_model
 from .ops.augment import normalize_u8
 
 
-def make_serving_fn(model_cfg, augment_cfg, variables, precision: str = "bf16", *, device="cpu"):
+def make_serving_fn(model_cfg, augment_cfg, variables, precision: str = "bf16", *, device="cuda"):
     """``images_u8 (B, H, W, 3) -> trainId masks (B, H, W) uint8`` on ``device``.
 
     ``precision``: ``bf16`` | ``f32`` (the float forward in that compute

@@ -1,0 +1,40 @@
+"""The generator's optimizer (port of the JAX ``train/optim.py``).
+
+SGD(momentum) or Adam, with the reference's weight decay: torch's L2 added
+into the gradient before the optimizer's own update, as
+``optax.add_decayed_weights`` placed before the optimizer in the JAX
+package (not the decoupled decay of AdamW). Adam's ``eps`` sits outside the
+square root, as in ``optax.scale_by_adam``. The learning rate is set per
+step by the train step from the state's schedule.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import OptimizerConfig
+
+
+def build_generator_tx(cfg: OptimizerConfig, model: torch.nn.Module, freeze_bn: bool = False,
+                       decay_exempt: tuple = ()) -> torch.optim.Optimizer:
+    """The optimizer over ``model``'s parameters.
+
+    ``decay_exempt``: top-level module names whose parameters get no weight
+    decay (their own param group). With ``aux_weight == 0`` the aux heads
+    ``supervision1``/``supervision2`` are exempt and also get no gradient,
+    so the optimizer skips them (``grad is None``): they stay at their init,
+    as the JAX package's masked decay plus zero gradient keeps them."""
+    if freeze_bn:
+        raise NotImplementedError("freeze_bn (DeepLabV2's frozen BatchNorm) is not ported yet")
+    exempt = frozenset(decay_exempt)
+    groups = {True: [], False: []}
+    for name, p in model.named_parameters():
+        groups[name.split(".", 1)[0] in exempt].append(p)
+    params = [{"params": groups[False], "weight_decay": cfg.weight_decay}]
+    if groups[True]:
+        params.append({"params": groups[True], "weight_decay": 0.0})
+    if cfg.name == "sgd":
+        return torch.optim.SGD(params, lr=cfg.learning_rate, momentum=cfg.sgd_momentum)
+    if cfg.name == "adam":
+        return torch.optim.Adam(params, lr=cfg.learning_rate, betas=(cfg.adam_b1, cfg.adam_b2), eps=1e-8)
+    raise ValueError(f"unknown optimizer {cfg.name!r}; options: sgd, adam")

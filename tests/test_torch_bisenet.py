@@ -103,26 +103,43 @@ def jax_run():
 
 
 def _port_logits(cfg, variables, x, quant=False):
-    model = tquant.quantized_model(cfg) if quant else build_model(cfg)
+    model = tquant.quantized_model(cfg, device="cpu") if quant else build_model(cfg, device="cpu")
     load_variables(model, variables)
     with torch.no_grad():
         out = model(torch.from_numpy(x).permute(0, 3, 1, 2))
     return out.permute(0, 2, 3, 1).numpy()
 
 
+def _assert_fields_match(port, ref):
+    for f in dataclasses.fields(port):
+        value = getattr(port, f.name)
+        if dataclasses.is_dataclass(value):
+            _assert_fields_match(value, getattr(ref, f.name))
+        else:
+            assert value == getattr(ref, f.name), f.name
+
+
 def test_config_defaults_match_jax():
-    for port_cls, jax_cls in ((tconfig.ModelConfig, jconfig.ModelConfig),
-                              (tconfig.AugmentConfig, jconfig.AugmentConfig)):
-        port, ref = port_cls(), jax_cls()
-        for f in dataclasses.fields(port):
-            assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    """Every field of the port's configs has the JAX package's name and
+    default, and the ported presets and derived properties agree."""
+    names = ("ModelConfig", "AugmentConfig", "DataConfig", "OptimizerConfig",
+             "AdversarialConfig", "LossConfig", "TrainConfig", "ExperimentConfig")
+    for name in names:
+        _assert_fields_match(getattr(tconfig, name)(), getattr(jconfig, name)())
+    for preset in ("bisenet_source_small", "bisenet_source_aug"):
+        port, ref = tconfig.get_preset(preset), jconfig.get_preset(preset)
+        _assert_fields_match(port, ref)
+        assert (port.train_mode, port.train_size) == (ref.train_mode, ref.train_size)
+    for pipeline in ("no_new_aug", "hflip_only", "all_four_combined", "all_four_plus_hflip"):
+        assert (tconfig.AugmentConfig(pipeline=pipeline).flags
+                == jconfig.AugmentConfig(pipeline=pipeline).flags)
 
 
 def test_jax_variables_cover_the_port_model(jax_run):
     """Every port tensor has a JAX counterpart of the same shape and none
     is left over: the module trees mirror each other."""
     state = from_jax_variables(jax_run["flat"])
-    own = build_model(TCFG).state_dict()
+    own = build_model(TCFG, device="cpu").state_dict()
     assert state.keys() == own.keys()
     for k, v in own.items():
         assert state[k].shape == v.shape, k
@@ -172,7 +189,7 @@ def test_quant_conv_calibration_stats_match_jax():
 
 def test_model_calibration_matches_jax(jax_run):
     cal = tquant.calibrate(TCFG, from_jax_variables(jax_run["flat"]),
-                           [torch.from_numpy(x) for x in jax_run["calib"]])
+                           [torch.from_numpy(x) for x in jax_run["calib"]], device="cpu")
     got = {k: v for k, v in to_jax_variables(cal).items() if k.startswith("quant_stats/")}
     want = {k: v for k, v in jax_run["cal"].items() if k.startswith("quant_stats/")}
     assert got.keys() == want.keys() and len(want) == 3 * 15
@@ -196,7 +213,7 @@ def test_quant_policy_routes_the_same_convs_through_the_kernel(jax_run, monkeypa
     expected = [p for p in jax_convs if not any(s in p for s in skip)]
     cfg = dataclasses.replace(TCFG, quant_skip=skip)
     variables = tquant.freeze(cfg, tquant.calibrate(
-        cfg, from_jax_variables(jax_run["flat"]), [torch.from_numpy(jax_run["calib"][0])]))
+        cfg, from_jax_variables(jax_run["flat"]), [torch.from_numpy(jax_run["calib"][0])], device="cpu"))
     got = sorted(k[len("quant_stats/"):-len("/in_absmax")]
                  for k in to_jax_variables(variables) if k.endswith("/in_absmax"))
     assert got == expected and len(jax_convs) == 15
@@ -216,10 +233,11 @@ def test_quant_policy_routes_the_same_convs_through_the_kernel(jax_run, monkeypa
 def test_pretrained_backbone_graft(jax_run, tmp_path):
     flat = jax_run["flat"]
     backbone = {k: v for k, v in flat.items() if "/context_path/resnet/" in k}
-    backbone["params/supervision1/kernel"] = np.zeros((1, 1, 256, 19), np.float32)
+    sup = np.random.RandomState(1).randn(1, 1, 256, 19).astype(np.float32)
+    backbone["params/supervision1/kernel"] = sup
     path = tmp_path / "backbone.npz"
     np.savez(path, **backbone)
-    fresh = init_model(build_model(TCFG), torch.Generator().manual_seed(0))
+    fresh = init_model(build_model(TCFG, device="cpu"), torch.Generator().manual_seed(0))
     grafted = load_npz_into_state(fresh, str(path), "bisenet")
     want = from_jax_variables(flat)
     for k, v in grafted.items():
@@ -227,6 +245,12 @@ def test_pretrained_backbone_graft(jax_run, tmp_path):
             assert torch.equal(v, want[k]), k
         else:
             assert torch.equal(v, fresh[k]), k  # keeps its seeded init
+    # a train model has the aux heads, and the graft loads them
+    train = init_model(build_model(TCFG, device="cpu", train=True), torch.Generator().manual_seed(0))
+    assert all(torch.equal(train[k], v) for k, v in fresh.items())  # one seed, the same weights
+    grafted = load_npz_into_state(train, str(path), "bisenet")
+    assert torch.equal(grafted["supervision1.weight"], torch.from_numpy(sup.transpose(3, 2, 0, 1)))
+    assert torch.equal(grafted["supervision2.weight"], train["supervision2.weight"])
 
     np.savez(tmp_path / "unknown.npz", **{"params/nope/conv/kernel": np.zeros((1, 1, 1, 1), np.float32)})
     with pytest.raises(KeyError):
@@ -238,8 +262,8 @@ def test_pretrained_backbone_graft(jax_run, tmp_path):
 
 
 def test_seeded_init_is_reproducible_and_device_free():
-    a = init_model(build_model(TCFG), torch.Generator().manual_seed(3))
-    b = init_model(build_model(TCFG), torch.Generator().manual_seed(3))
+    a = init_model(build_model(TCFG, device="cpu"), torch.Generator().manual_seed(3))
+    b = init_model(build_model(TCFG, device="cpu"), torch.Generator().manual_seed(3))
     assert all(torch.equal(a[k], b[k]) for k in a)
     w = a["context_path.resnet.layer3_0.conv1.conv.weight"]  # fan-out Kaiming
     assert abs(float(w.std()) - (2.0 / (256 * 9)) ** 0.5) < 0.1 * (2.0 / (256 * 9)) ** 0.5

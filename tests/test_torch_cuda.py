@@ -5,7 +5,9 @@ PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerance: none; the kernels round like their plain versions.
+Tolerance: none, except the Lovász histogram's f32 error sums, which add
+in another order (stated at the test); the kernels round like their plain
+versions.
 """
 
 import numpy as np
@@ -13,6 +15,8 @@ import pytest
 import torch
 
 from rtda_semanticsegmentation_tpu_torch.kernels import int8_conv as k3
+from rtda_semanticsegmentation_tpu_torch.kernels import lovasz as klov
+from rtda_semanticsegmentation_tpu_torch.ops.losses import lovasz_softmax_binned
 
 # (kernel, stride, pad, C, CO): BiSeNet-R18's quantized conv shapes, narrowed
 SHAPES = [(3, 1, 1, 128, 128), (3, 2, 1, 32, 48), (1, 2, 0, 32, 48), (3, 1, 1, 64, 19),
@@ -41,3 +45,76 @@ def test_int8_conv_kernel_matches_plain_version(k, s, p, C, CO):
         assert got.device == xq.device and got.dtype == want.dtype
         assert torch.equal(got, want), (relu, dt, inv_out is not None)
     assert k3.launches == before + 3
+
+
+def _lovasz_case(seed, n, ignore_frac):
+    rng = np.random.RandomState(seed)
+    logits = rng.randn(2, 19, n).astype(np.float32) * 3.0
+    p = np.exp(logits - logits.max(1, keepdims=True))
+    p /= p.sum(1, keepdims=True)
+    labels = rng.randint(0, 19, (2, n)).astype(np.int32)
+    labels[rng.rand(2, n) < ignore_frac] = 255
+    dev = torch.device("cuda")
+    return torch.from_numpy(p.astype(np.float32)).to(dev), torch.from_numpy(labels).to(dev)
+
+
+# (pixels per image, ignore share, ignore label): a full tile, a ragged
+# count, all ignored, and no ignore label
+LOVASZ_CASES = [(6144, 0.1, 255), (1001, 0.1, 255), (777, 1.0, 255), (513, 0.1, -1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,ignore_frac,ignore", LOVASZ_CASES)
+def test_lovasz_hist_kernel_matches_plain_version(n, ignore_frac, ignore):
+    """Counts exact; error sums within f32 reordering (rtol 1e-5, atol 1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    p, labels = _lovasz_case(n, n, ignore_frac)
+    before = klov.hist_launches
+    got = klov.lovasz_hist(p, labels, 256, ignore)
+    want = klov.lovasz_hist_plain(p, labels, 256, ignore)
+    torch.cuda.synchronize()
+    assert klov.hist_launches == before + 1
+    assert torch.equal(got[:, :2], want[:, :2])
+    torch.testing.assert_close(got[:, 2], want[:, 2], rtol=1e-5, atol=1e-5)
+    if ignore_frac == 1.0:
+        assert not bool(got.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp", [True, False])
+@pytest.mark.parametrize("n,ignore_frac,ignore", LOVASZ_CASES)
+def test_lovasz_bwd_kernel_matches_plain_version(interp, n, ignore_frac, ignore):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    p, labels = _lovasz_case(n + 1, n, ignore_frac)
+    g = torch.Generator(device="cuda").manual_seed(n)
+    table = torch.randn((19, 2, 256) if interp else (19, 256), generator=g, device="cuda") * 0.01
+    before = klov.bwd_launches
+    got = klov.lovasz_bwd(p, labels, table, 256, ignore, interp)
+    want = klov.lovasz_bwd_plain(p, labels, table, 256, ignore, interp)
+    torch.cuda.synchronize()
+    assert klov.bwd_launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_binned_lovasz_launches_each_kernel_once_and_matches_the_cpu():
+    """One forward and backward of the loss on the card: one K1 and one K2
+    launch; loss and gradient equal the CPU's (rtol 1e-6: the error sums add
+    in another order; the tables, from exact counts, are the same)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    p, labels = _lovasz_case(9, 64 * 96, 0.1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        q = p.reshape(2, 19, 64, 96).to(dev).requires_grad_(True)
+        before = (klov.hist_launches, klov.bwd_launches)
+        loss = lovasz_softmax_binned(q, labels.reshape(2, 64, 96).to(dev))
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (klov.hist_launches - before[0], klov.bwd_launches - before[1])
+        out[dev] = (loss.detach().cpu(), q.grad.cpu(), launched)
+    assert out["cuda"][2] == (1, 1) and out["cpu"][2] == (0, 0)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-6, atol=0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-6, atol=0)

@@ -1,0 +1,188 @@
+"""The port's losses and its Lovász kernels' plain versions against the JAX
+package, on numpy-seeded inputs.
+
+Shapes: B = 2 images of 64 x 96 (plus ragged pixel counts for the kernels),
+the real 19 classes, about 10% ignore labels. The port's probabilities are
+NCHW, (B, C, N) for the kernels; the JAX package's are channel-last, (C, P)
+for its kernels with P = B * N in image-major order.
+
+Tolerances, each with its reason:
+
+- K1 (``lovasz_hist_plain``): count and fg rows exact (integers); the
+  error-sum row adds the same bf16-rounded errors in f32 in another order:
+  rtol 1e-5, atol 1e-5.
+- K2 (``lovasz_bwd_plain``): exact. Both pick one bf16-rounded table entry
+  per pixel and flip its sign for foreground; nothing is summed.
+- binned loss: rtol 1e-6 (the error sums above enter the loss); its
+  gradient exact to rtol 1e-6: the tables come from the exact counts by the
+  same f32 operations, so they round to the same bf16 values.
+- exact-sort Lovász and cross-entropy, f32: rtol 1e-5 on the loss and
+  atol 1e-7 on the gradient (sums in another order).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rtda_semanticsegmentation_tpu.ops import losses as jlosses
+from rtda_semanticsegmentation_tpu.ops.pallas_lovasz import lovasz_radix_bwd, lovasz_radix_hist
+from rtda_semanticsegmentation_tpu_torch.kernels import lovasz as klov
+from rtda_semanticsegmentation_tpu_torch.ops import losses as tlosses
+
+B, H, W, C, BINS = 2, 64, 96, 19, 256
+
+
+def _case(seed, n=H * W, ignore_frac=0.1, scale=3.0):
+    """(B, C, N) f32 softmax probabilities and (B, N) int32 labels."""
+    rng = np.random.RandomState(seed)
+    logits = rng.randn(B, C, n).astype(np.float32) * scale
+    p = np.exp(logits - logits.max(1, keepdims=True))
+    p = (p / p.sum(1, keepdims=True)).astype(np.float32)
+    labels = rng.randint(0, C, (B, n)).astype(np.int32)
+    labels[rng.rand(B, n) < ignore_frac] = 255
+    return p, labels
+
+
+def _jax_rows(p, labels):
+    """The JAX kernels' (C, P) / (P,) operands of the same pixels."""
+    return jnp.asarray(p.transpose(1, 0, 2).reshape(C, -1)), jnp.asarray(labels.reshape(-1))
+
+
+def _assert_hist(got, want):
+    np.testing.assert_array_equal(got[:, :2], want[:, :2])
+    np.testing.assert_allclose(got[:, 2], want[:, 2], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,ignore_frac,ignore", [
+    (H * W, 0.1, 255),
+    (1000, 0.1, 255),  # ragged: the Pallas kernel pads to its chunk, the port masks
+    (H * W, 1.0, 255),  # all ignored
+    (777, 0.1, None),  # no ignore label: every pixel counts, 255 included
+])
+def test_hist_plain_matches_pallas_and_xla(n, ignore_frac, ignore):
+    p, labels = _case(1, n, ignore_frac)
+    got = klov.lovasz_hist_plain(torch.from_numpy(p), torch.from_numpy(labels), BINS,
+                                 -1 if ignore is None else ignore).numpy()
+    pt, lt = _jax_rows(p, labels)
+    k_ignore = -1 if ignore is None else ignore
+    pallas = np.asarray(lovasz_radix_hist(pt, lt, BINS, k_ignore, interpret=True))
+    valid = lt != k_ignore
+    xla = np.asarray(jlosses._binned_hists_xla(pt, lt, valid, BINS))
+    _assert_hist(got, pallas)
+    _assert_hist(got, xla)
+    assert got[:, 0].sum() == C * int(np.asarray(valid).sum())
+    if ignore_frac == 1.0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("interp", [True, False])
+@pytest.mark.parametrize("n,ignore", [(H * W, 255), (1000, 255), (777, None)])
+def test_bwd_plain_matches_pallas_exactly(interp, n, ignore):
+    p, labels = _case(2, n)
+    rng = np.random.RandomState(3)
+    table = (rng.randn(*((C, 2, BINS) if interp else (C, BINS))) * 0.01).astype(np.float32)
+    k_ignore = -1 if ignore is None else ignore
+    got = klov.lovasz_bwd_plain(torch.from_numpy(p), torch.from_numpy(labels),
+                                torch.from_numpy(table), BINS, k_ignore, interp).numpy()
+    pt, lt = _jax_rows(p, labels)
+    want = np.asarray(lovasz_radix_bwd(pt, lt, jnp.asarray(table), BINS, k_ignore,
+                                       interp=interp, interpret=True))
+    np.testing.assert_array_equal(got.transpose(1, 0, 2).reshape(C, -1), want)
+
+
+def test_wrappers_take_the_plain_version_on_the_cpu():
+    p, labels = _case(4, 500)
+    tp, tl = torch.from_numpy(p), torch.from_numpy(labels)
+    table = torch.rand(C, 2, BINS)
+    before = (klov.hist_launches, klov.bwd_launches)
+    assert torch.equal(klov.lovasz_hist(tp, tl, BINS, 255), klov.lovasz_hist_plain(tp, tl, BINS, 255))
+    assert torch.equal(klov.lovasz_bwd(tp, tl, table, BINS, 255, True),
+                       klov.lovasz_bwd_plain(tp, tl, table, BINS, 255, True))
+    assert (klov.hist_launches, klov.bwd_launches) == before  # plain versions never count
+    with pytest.raises(ValueError, match="power of two"):
+        klov.lovasz_hist(tp, tl, 100, 255)
+    with pytest.raises(ValueError, match="int32"):
+        klov.lovasz_hist(tp, tl.long(), BINS, 255)
+
+
+def _nchw(p, labels):
+    """(B, C, H, W) port probabilities, (B, H, W) labels and the JAX
+    channel-last copies of the same values."""
+    tp = torch.from_numpy(p.reshape(B, C, H, W))
+    tl = torch.from_numpy(labels.reshape(B, H, W))
+    return tp, tl, jnp.asarray(p.reshape(B, C, H, W).transpose(0, 2, 3, 1)), jnp.asarray(tl.numpy())
+
+
+@pytest.mark.parametrize("classes", ["present", "all"])
+@pytest.mark.parametrize("force_pallas", [False, True])
+def test_binned_loss_and_grad_match_jax(classes, force_pallas, monkeypatch):
+    p, labels = _case(5)
+    labels[:, : H * W // 3][labels[:, : H * W // 3] < 4] = 255  # a few absent classes
+    tp, tl, jp, jl = _nchw(p, labels)
+    monkeypatch.setattr(jlosses, "FORCE_PALLAS_INTERPRET", force_pallas)
+    want, want_g = jax.value_and_grad(
+        lambda q: jlosses.lovasz_softmax_binned(q, jl, 255, classes, BINS, interp=True))(jp)
+    tp.requires_grad_(True)
+    got = tlosses.lovasz_softmax_binned(tp, tl, 255, classes, BINS, interp=True)
+    got.backward()
+    assert float(got.detach()) == pytest.approx(float(want), rel=1e-6)
+    np.testing.assert_allclose(tp.grad.permute(0, 2, 3, 1).numpy(), np.asarray(want_g), rtol=1e-6, atol=0)
+
+
+def test_binned_interp_off_matches_jax():
+    p, labels = _case(6)
+    tp, tl, jp, jl = _nchw(p, labels)
+    want, want_g = jax.value_and_grad(
+        lambda q: jlosses.lovasz_softmax_binned(q, jl, None, "present", BINS, interp=False))(jp)
+    tp.requires_grad_(True)
+    got = tlosses.lovasz_softmax_binned(tp, tl, None, "present", BINS, interp=False)
+    got.backward()
+    assert float(got.detach()) == pytest.approx(float(want), rel=1e-6)
+    np.testing.assert_allclose(tp.grad.permute(0, 2, 3, 1).numpy(), np.asarray(want_g), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("classes", ["present", "all"])
+def test_exact_lovasz_matches_jax(classes):
+    p, labels = _case(7)
+    tp, tl, jp, jl = _nchw(p, labels)
+    want, want_g = jax.value_and_grad(lambda q: jlosses.lovasz_softmax(q, jl, 255, classes))(jp)
+    tp.requires_grad_(True)
+    got = tlosses.lovasz_softmax(tp, tl, 255, classes)
+    got.backward()
+    assert float(got.detach()) == pytest.approx(float(want), rel=1e-5)
+    np.testing.assert_allclose(tp.grad.permute(0, 2, 3, 1).numpy(), np.asarray(want_g), atol=1e-7)
+
+
+@pytest.mark.parametrize("reduction", ["mean", "mean_per_image", "none"])
+@pytest.mark.parametrize("all_ignored", [False, True])
+def test_cross_entropy_matches_jax(reduction, all_ignored):
+    rng = np.random.RandomState(8)
+    logits = (rng.randn(B, C, H, W) * 2).astype(np.float32)
+    labels = rng.randint(0, C, (B, H, W)).astype(np.int32)
+    labels[rng.rand(B, H, W) < 0.1] = 255
+    if all_ignored:
+        labels[:] = 255
+    jx = jnp.asarray(logits.transpose(0, 2, 3, 1))
+
+    def jloss(x):
+        out = jlosses.cross_entropy_with_ignore(x, jnp.asarray(labels), 255, reduction)
+        return out.sum(), out
+
+    (_, want), want_g = jax.value_and_grad(jloss, has_aux=True)(jx)
+    tx = torch.from_numpy(logits).requires_grad_(True)
+    got = tlosses.cross_entropy_with_ignore(tx, torch.from_numpy(labels), 255, reduction)
+    got.sum().backward()
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(tx.grad.permute(0, 2, 3, 1).numpy(), np.asarray(want_g), atol=1e-7)
+    if all_ignored:
+        assert not got.detach().numpy().any()
+
+
+def test_radix_factors_match_jax():
+    for bins in (16, 128, 256, 1024):
+        assert tlosses._radix_factors(bins) == jlosses._radix_factors(bins)
+    with pytest.raises(ValueError):
+        tlosses._radix_factors(48)

@@ -20,12 +20,16 @@ import torch
 from PIL import Image
 
 from rtda_semanticsegmentation_tpu import config as jconfig
+from rtda_semanticsegmentation_tpu.cli import predict as jpredict
+from rtda_semanticsegmentation_tpu.data.labels import train_ids_to_rgb as jtrain_ids_to_rgb
 from rtda_semanticsegmentation_tpu.models.factory import build_model as jbuild_model
 from rtda_semanticsegmentation_tpu.models.factory import init_model as jinit_model
 from rtda_semanticsegmentation_tpu.ops.augment import normalize_u8 as jnormalize_u8
 from rtda_semanticsegmentation_tpu.serving import make_serving_fn as jmake_serving_fn
 from rtda_semanticsegmentation_tpu_torch import config as tconfig
+from rtda_semanticsegmentation_tpu_torch.cli import predict as tpredict
 from rtda_semanticsegmentation_tpu_torch.cli.predict import main as predict_main
+from rtda_semanticsegmentation_tpu_torch.data.labels import train_ids_to_rgb
 from rtda_semanticsegmentation_tpu_torch.models.convert import from_jax_variables
 from rtda_semanticsegmentation_tpu_torch.models.quantize import calibrate
 from rtda_semanticsegmentation_tpu_torch.ops.augment import normalize_u8
@@ -51,7 +55,7 @@ def shared():
 
 def test_f32_masks_match_jax_outside_near_ties(shared):
     serve = make_serving_fn(tconfig.ModelConfig(compute_dtype="float32"), tconfig.AugmentConfig(),
-                            shared["variables"], "f32")
+                            shared["variables"], "f32", device="cpu")
     got = serve(torch.from_numpy(shared["frames"]))
     assert got.dtype == torch.uint8 and tuple(got.shape) == (B, H, W)
     top2 = np.sort(shared["logits"], axis=-1)[..., -2:]
@@ -66,10 +70,10 @@ def test_bf16_and_int8_serving_give_valid_masks(shared, precision):
     variables = shared["variables"]
     if precision == "int8":
         with pytest.raises(ValueError, match="calibrate"):
-            make_serving_fn(cfg, tconfig.AugmentConfig(), variables, "int8")
+            make_serving_fn(cfg, tconfig.AugmentConfig(), variables, "int8", device="cpu")
         calib = [normalize_u8(torch.from_numpy(shared["frames"]), tconfig.AugmentConfig())]
-        variables = calibrate(cfg, variables, calib)
-    serve = make_serving_fn(cfg, tconfig.AugmentConfig(), variables, precision)
+        variables = calibrate(cfg, variables, calib, device="cpu")
+    serve = make_serving_fn(cfg, tconfig.AugmentConfig(), variables, precision, device="cpu")
     masks = serve(torch.from_numpy(shared["frames"]))
     assert masks.dtype == torch.uint8 and tuple(masks.shape) == (B, H, W)
     assert int(masks.max()) < 19
@@ -92,7 +96,7 @@ def image_dir(tmp_path):
 def test_predict_f32_writes_masks_at_input_size(image_dir, tmp_path):
     out = tmp_path / "masks"
     rc = predict_main(["--images", str(image_dir), "--output", str(out),
-                       "--size", "32", "64", "--batch_size", "2", "--precision", "f32"])
+                       "--size", "32", "64", "--batch_size", "2", "--precision", "f32", "--device", "cpu"])
     assert rc == 0
     for name, size in [("a", (60, 40)), ("b", (48, 32)), ("c", (64, 48))]:
         mask = Image.open(out / f"{name}_trainids.png")
@@ -107,7 +111,7 @@ def test_predict_int8_overlay_model_size(image_dir, tmp_path):
     out = tmp_path / "masks_q"
     rc = predict_main(["--images", str(image_dir), "--output", str(out),
                        "--size", "32", "64", "--batch_size", "2", "--precision", "int8",
-                       "--calib_batches", "1", "--overlay", "--no_resize_back"])
+                       "--calib_batches", "1", "--overlay", "--no_resize_back", "--device", "cpu"])
     assert rc == 0
     for name in ("a", "b", "c"):
         assert Image.open(out / f"{name}_trainids.png").size == (64, 32)
@@ -117,21 +121,62 @@ def test_predict_int8_overlay_model_size(image_dir, tmp_path):
 @pytest.mark.parametrize("flag", [["--checkpoint_dir", "ckpt"], ["--artifact", "art"]])
 def test_predict_unported_sources_raise(image_dir, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="not ported"):
-        predict_main(["--images", str(image_dir), "--output", str(tmp_path / "o"), *flag])
+        predict_main(["--images", str(image_dir), "--output", str(tmp_path / "o"), "--device", "cpu", *flag])
+
+
+def _flags(parser):
+    return {a.option_strings[0]: (a.dest, a.default, a.choices, a.nargs, a.type, a.required)
+            for a in parser._actions if a.option_strings and a.dest != "help"}
+
+
+def test_predict_copies_match_jax(image_dir):
+    """The port's own copies of the JAX CLI's parser, image collection, stem
+    de-duplication and trainId palette agree with the originals; the port
+    adds only ``--device``."""
+    port, ref = _flags(tpredict.build_parser()), _flags(jpredict.build_parser())
+    assert port.pop("--device") == ("device", "cuda", ("cuda", "cpu"), None, None, False)
+    assert port == ref
+    assert tpredict.collect_images(str(image_dir)) == jpredict.collect_images(str(image_dir))
+    paths = ["x/a.png", "y/a.jpg", "b.png", "z/a.bmp"]
+    assert tpredict._unique_stems(paths) == jpredict._unique_stems(paths)
+    ids = np.arange(256, dtype=np.uint8).reshape(16, 16)
+    np.testing.assert_array_equal(train_ids_to_rgb(ids), jtrain_ids_to_rgb(ids))
+
+
+def test_predict_needs_a_card_unless_device_cpu(image_dir, tmp_path, monkeypatch):
+    """``--device cuda`` (the default) raises without a CUDA device; it
+    never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        predict_main(["--images", str(image_dir), "--output", str(tmp_path / "o")])
+    assert not (tmp_path / "o").exists()
+
+
+PORT_ENTRY_MODULES = (
+    "rtda_semanticsegmentation_tpu_torch.serving",
+    "rtda_semanticsegmentation_tpu_torch.models.quantize",
+    "rtda_semanticsegmentation_tpu_torch.cli.predict",
+    "rtda_semanticsegmentation_tpu_torch.kernels.lovasz",
+    "rtda_semanticsegmentation_tpu_torch.ops.losses",
+    "rtda_semanticsegmentation_tpu_torch.ops.augment",
+    "rtda_semanticsegmentation_tpu_torch.train.steps",
+    "chip_smoke",
+    "profile_serve",
+    "profile_train",
+)
 
 
 def test_port_imports_no_jax():
-    """The serving path, the CLI and chip_smoke.py load no jax/flax/optax;
-    the serving path and chip_smoke.py load nothing of the JAX package."""
+    """After each import of the port's modules and scripts, no jax, jaxlib,
+    flax or optax module and nothing of the JAX package is loaded."""
     code = (
-        "import sys\n"
-        "import chip_smoke, rtda_semanticsegmentation_tpu_torch.serving\n"
-        "import rtda_semanticsegmentation_tpu_torch.models.quantize\n"
-        "jax_pkg = [m for m in sys.modules if m.split('.')[0] == 'rtda_semanticsegmentation_tpu']\n"
-        "import rtda_semanticsegmentation_tpu_torch.cli.predict\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')]\n"
-        "print(jax_pkg, bad)\n"
-        "sys.exit(1 if bad or jax_pkg else 0)\n"
+        "import importlib, sys\n"
+        f"for name in {PORT_ENTRY_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "    bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "           ('jax', 'jaxlib', 'flax', 'optax', 'rtda_semanticsegmentation_tpu')]\n"
+        "    if bad:\n"
+        "        sys.exit(f'{name} loads {bad[:5]}')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
