@@ -8,9 +8,9 @@ without a device it raises and prints no result. Phases, each raising on
 failure:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compiles ``csrc/int8_conv.cu`` and ``csrc/lovasz.cu`` for sm_90a
-   into build/kernels/, one nvcc each, started together; prints the ptxas
-   reports;
+2. build: compiles ``csrc/int8_conv.cu``, ``csrc/lovasz.cu`` and
+   ``csrc/conv4x4s2.cu`` for sm_90a into build/kernels/, one nvcc each,
+   started together; prints the ptxas reports;
 3. kernels: the s8 conv kernel (K3) against its plain PyTorch version at
    every quantized conv shape of BiSeNet-R18 at 512x1024, batch 8: bf16
    outputs and requantized s8 codes must be bit-identical; the Lovász
@@ -38,13 +38,28 @@ failure:
    steps on one repeated batch: every loss finite, the mean of the last 3
    below the first, K1 and K2 launched exactly once per step. Prints
    ms/step and img/s (CUDA events, after 3 warm-up steps) and the peak
-   device memory.
+   device memory;
+6. adversarial: the flagship preset ``bisenet_adversarial_lovasz``
+   (BiSeNet-R18 + FC-Discriminator, bf16, binned Lovász, ``all_four_combined``
+   augmentation, batch 8, source 720x1280, target 512x1024) with the
+   discriminator's first conv on K5a-c. An f32 step at 2x64x96 on the card
+   matches the CPU's with the default discriminator (cuDNN conv1), TF32 off
+   (losses within 1e-4, grad norms within 1e-2 relative); from one saved
+   G+D state, a step with the kernels and a step with their plain versions
+   agree (loss within 1e-4, loss_d and loss_adv_g within 1e-3, grad norms
+   within 1e-2 relative: the bf16 discriminator rounds after sums taken in
+   another order). Then 8 steps on one repeated batch: every loss finite,
+   the mean of the last 3 below the first, loss_d first within 0.1 of ln 2,
+   and per step K5a launched 3 times, K5b 2, K5c 1, K1 1 and K2 1. Prints
+   ms/step, source img/s and peak memory, and the same time with the
+   default discriminator.
 
 The last two lines are a JSON summary of the kernels and the result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -57,14 +72,20 @@ import torch
 
 from rtda_semanticsegmentation_tpu_torch.config import AugmentConfig, ModelConfig, get_preset
 from rtda_semanticsegmentation_tpu_torch.kernels import build as kbuild
+from rtda_semanticsegmentation_tpu_torch.kernels import conv4x4 as kc
 from rtda_semanticsegmentation_tpu_torch.kernels import int8_conv as k3
 from rtda_semanticsegmentation_tpu_torch.kernels import lovasz as klov
-from rtda_semanticsegmentation_tpu_torch.models.factory import build_model, init_model
+from rtda_semanticsegmentation_tpu_torch.models.factory import (
+    build_discriminator,
+    build_model,
+    init_discriminator,
+    init_model,
+)
 from rtda_semanticsegmentation_tpu_torch.models.quantize import calibrate, freeze
 from rtda_semanticsegmentation_tpu_torch.ops.augment import normalize_u8
 from rtda_semanticsegmentation_tpu_torch.ops.losses import _binned_lovasz_forward
 from rtda_semanticsegmentation_tpu_torch.serving import make_serving_fn
-from rtda_semanticsegmentation_tpu_torch.train.optim import build_generator_tx
+from rtda_semanticsegmentation_tpu_torch.train.optim import build_discriminator_tx, build_generator_tx
 from rtda_semanticsegmentation_tpu_torch.train.schedule import poly_lr_schedule
 from rtda_semanticsegmentation_tpu_torch.train.state import TrainState
 from rtda_semanticsegmentation_tpu_torch.train.steps import make_train_step
@@ -91,9 +112,16 @@ CLASSES, BINS = 19, 256
 TRAIN_STEPS, WARMUP_STEPS = 8, 3
 MAX_ITER = 1000
 EXEMPT = ("supervision1", "supervision2")
-# published H100 SXM peaks (dense): int8 tensor-core rate and HBM bandwidth
+# published H100 SXM peaks (dense): int8 and bf16 tensor-core rates, HBM bandwidth
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# the adversarial phase: the discriminator's input maps (source, target)
+NDF = 64
+SOURCE_HW, TARGET_HW = (720, 1280), (512, 1024)
+# plain versions swapped in for each kernel of a path: (module, wrapper)
+LOVASZ_KERNELS = ((klov, "lovasz_hist"), (klov, "lovasz_bwd"))
+CONV4_KERNELS = ((kc, "conv4x4s2p1"), (kc, "conv4x4s2p1_dw"), (kc, "conv4x4s2p1_dx"))
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -126,19 +154,19 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        for f in [pool.submit(k3._library), pool.submit(klov._library)]:
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
+        for f in [pool.submit(k3._library), pool.submit(klov._library), pool.submit(kc._library)]:
             f.result()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {kbuild.nvcc_path()})")
     for source, info in kbuild.build_log.items():
         print(f"build log {source} ({info['seconds']:.2f} s):\n{info['log']}")
 
 
-def bound_ms(nbytes: float, int8_ops: float = 0.0):
+def bound_ms(nbytes: float, ops: float = 0.0, peak: float = PEAK_INT8_OPS):
     """The least time the card could take: the larger of bytes over the
-    memory rate and int8 operations over the int8 peak. Returns (ms,
-    bound_by)."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, int8_ops / PEAK_INT8_OPS * 1e3
+    memory rate and operations over their peak rate (int8 unless ``peak``
+    says otherwise). Returns (ms, bound_by)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -255,6 +283,103 @@ def phase_lovasz_kernels() -> dict:
     return out
 
 
+def _softmax_map(hw, seed: int) -> torch.Tensor:
+    """(8, 19, H, W) bf16 softmax probabilities of 3 * randn logits: what the
+    discriminator reads."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    logits = torch.randn((BATCH, CLASSES) + tuple(hw), generator=g, device=DEV) * 3.0
+    return torch.softmax(logits, dim=1).to(torch.bfloat16)
+
+
+def _within_bf16_ulp(got, want) -> bool:
+    """|got - want| <= one bf16 ulp of want + 1e-5 * max |want|: where an
+    output cancels to far below its terms, the f32 sums' order moves it by
+    more than a bf16 ulp of itself before it is rounded."""
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(want)
+    allowed = torch.ldexp(torch.ones_like(want), e - 8) + 1e-5 * want.abs().max()
+    return bool(((got - want).abs() <= allowed).all())
+
+
+def phase_conv4_kernels() -> dict:
+    """K5a on the source and target maps, K5b on both, K5c on the target:
+    the shapes of one adversarial step. Returns per-step totals (K5a x1
+    source + x2 target, K5b x1 each, K5c x1 target) for the kernels line."""
+    g = torch.Generator(device=DEV).manual_seed(3)
+    w = torch.randn((NDF, CLASSES, 4, 4), generator=g, device=DEV) * 0.02
+    w16 = w.to(torch.bfloat16)
+    w_bytes = w.numel() * 4
+    per_step = {"conv4x4s2p1": (1, 2), "conv4x4s2p1_dw": (1, 1), "conv4x4s2p1_dx": (0, 1)}
+    out = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0,
+                  "by": {"bytes": 0.0, "operations": 0.0}} for name in per_step}
+    for where, hw, seed in (("source", SOURCE_HW, 10), ("target", TARGET_HW, 11)):
+        x = _softmax_map(hw, seed)
+        h, wd = hw
+        ho, wo = h // 2, wd // 2
+        dy = (torch.randn((BATCH, NDF, ho, wo), generator=g, device=DEV) * 1e-3).to(torch.bfloat16)
+        # the conv's multiply-adds over the interior: 16 C per output (K5a,
+        # K5b), 4 CO per input (K5c)
+        macs = BATCH * ho * wo * NDF * CLASSES * 16
+        cases = {
+            "conv4x4s2p1": (lambda: kc.conv4x4s2p1(x, w), lambda: kc.conv4x4s2p1_plain(x, w),
+                            lambda: torch.nn.functional.conv2d(x, w16, stride=2, padding=1),
+                            x.numel() * 2 + w_bytes + dy.numel() * 2),
+            "conv4x4s2p1_dw": (lambda: kc.conv4x4s2p1_dw(x, dy), lambda: kc.conv4x4s2p1_dw_plain(x, dy),
+                               lambda: torch.nn.grad.conv2d_weight(x, w.shape, dy, stride=2, padding=1),
+                               x.numel() * 2 + dy.numel() * 2 + w_bytes),
+            "conv4x4s2p1_dx": (lambda: kc.conv4x4s2p1_dx(dy, w), lambda: kc.conv4x4s2p1_dx_plain(dy, w),
+                               lambda: torch.nn.grad.conv2d_input(x.shape, w16, dy, stride=2, padding=1),
+                               dy.numel() * 2 + w_bytes + x.numel() * 2),
+        }
+        # correctness: bf16 and f32 outputs of K5a and K5c, K5b's f32 sums
+        checks = [("conv4x4s2p1", kc.conv4x4s2p1(x, w, torch.float32), kc.conv4x4s2p1_plain(x, w, torch.float32)),
+                  ("conv4x4s2p1", kc.conv4x4s2p1(x, w), kc.conv4x4s2p1_plain(x, w)),
+                  ("conv4x4s2p1_dw", kc.conv4x4s2p1_dw(x, dy), kc.conv4x4s2p1_dw_plain(x, dy))]
+        if where == "target":
+            checks += [("conv4x4s2p1_dx", kc.conv4x4s2p1_dx(dy, w, torch.float32),
+                        kc.conv4x4s2p1_dx_plain(dy, w, torch.float32)),
+                       ("conv4x4s2p1_dx", kc.conv4x4s2p1_dx(dy, w), kc.conv4x4s2p1_dx_plain(dy, w))]
+        torch.cuda.synchronize()
+        for name, got, want in checks:
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            if want.dtype == torch.bfloat16:
+                ok, tol = _within_bf16_ulp(got, want), "1 bf16 ulp + 1e-5 * max |ref|"
+            else:
+                rel = 1e-4 if name == "conv4x4s2p1_dw" else 1e-5
+                ok, tol = err <= rel * scale, f"{rel:g} * max |ref|"
+            print(f"kernel {name} {where} {want.dtype}: max |diff| {err:.3e} (max |ref| {scale:.3e}, "
+                  f"tolerance {tol})")
+            if not ok or got.dtype != want.dtype or got.shape != want.shape:
+                raise AssertionError(f"{name} ({where}, {want.dtype}) differs from its plain version")
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        for name, (fn, plain, library, nbytes) in cases.items():
+            count = per_step[name][where == "target"]
+            if not count:
+                continue
+            ms = cuda_ms(fn, 20)
+            plain_ms = cuda_ms(plain, 5, 1)
+            library_ms = cuda_ms(library, 20)
+            bound, by = bound_ms(nbytes, 2.0 * macs, PEAK_BF16_FLOPS)
+            print(f"kernel {name} {where} {tuple(x.shape)}: {ms:.4f} ms "
+                  f"({2.0 * macs / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+                  f"cuDNN bf16 {library_ms:.4f} ms, bound {bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, "
+                  f"{2.0 * macs / 1e9:.1f} GFLOP), x{count} per step")
+            entry = out[name]
+            entry["ms"] += count * ms
+            entry["plain_ms"] += count * plain_ms
+            entry["library_ms"] += count * library_ms
+            entry["bound_ms"] += count * bound
+            entry["by"][by] += count * bound
+        del x, dy
+    for name, entry in out.items():
+        by = entry.pop("by")
+        entry["bound_by"] = "operations" if by["operations"] > by["bytes"] else "bytes"
+        print(f"kernel {name} per adversarial step: {entry['ms']:.4f} ms kernel, {entry['plain_ms']:.4f} ms plain, "
+              f"{entry['library_ms']:.4f} ms cuDNN, {entry['bound_ms']:.4f} ms bound")
+    return out
+
+
 def _frames(seed: int) -> torch.Tensor:
     rng = np.random.RandomState(seed)
     return torch.from_numpy(rng.randint(0, 256, (BATCH, H, W, 3), np.uint8)).to(DEV)
@@ -349,52 +474,78 @@ def _train_batch(b: int, h: int, w: int, seed: int, device) -> dict:
             "label": torch.from_numpy(labels).to(device)}
 
 
-def _train_setup(cfg, device):
+def _train_setup(cfg, device, fused_conv1: bool = False):
+    """A seeded G (and, in the adversarial modes, D) with their optimizers
+    and schedules, and the step."""
     model = build_model(cfg.model, device=device, train=True)
     init_model(model, torch.Generator().manual_seed(0))
     sched = poly_lr_schedule(cfg.optimizer.learning_rate, MAX_ITER, cfg.optimizer.poly_power)
     state = TrainState(model, build_generator_tx(cfg.optimizer, model, decay_exempt=EXEMPT), sched)
-    return state, make_train_step(cfg, sched)
+    if not cfg.adversarial.enabled:
+        return state, make_train_step(cfg, sched)
+    disc = build_discriminator(cfg.model, device=device, fused_conv1=fused_conv1)
+    init_discriminator(disc, torch.Generator().manual_seed(1))
+    state.discriminator, state.d_optimizer = disc, build_discriminator_tx(cfg.adversarial, disc)
+    state.d_schedule = poly_lr_schedule(cfg.adversarial.disc_learning_rate, MAX_ITER, cfg.optimizer.poly_power)
+    return state, make_train_step(cfg, sched, state.d_schedule)
 
 
 def _rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-12)
 
 
-def _kernels_vs_plain_step(state, step, batch) -> None:
-    """From one saved state: a step with K1/K2 and a step with their plain
-    versions swapped in."""
-    saved = (copy.deepcopy(state.model.state_dict()), copy.deepcopy(state.optimizer.state_dict()), state.step)
+@contextlib.contextmanager
+def plain_versions(kernels):
+    """Swap each (module, wrapper) for the module's ``<wrapper>_plain``."""
+    saved = [(m, name, getattr(m, name)) for m, name in kernels]
+    for m, name, _ in saved:
+        setattr(m, name, getattr(m, name + "_plain"))
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def _kernels_vs_plain_step(state, step, batch, kernels) -> tuple:
+    """From one saved state: the metrics of a step with the kernels and of a
+    step with their plain versions swapped in."""
+    modules = [(state.model, state.optimizer)]
+    if state.discriminator is not None:
+        modules.append((state.discriminator, state.d_optimizer))
+    saved = [(copy.deepcopy(m.state_dict()), copy.deepcopy(o.state_dict())) for m, o in modules]
+    step0 = state.step
     results = []
     for plain in (False, True):
-        state.model.load_state_dict(saved[0])
-        state.optimizer.load_state_dict(saved[1])
-        state.step = saved[2]
-        kernels = (klov.lovasz_hist, klov.lovasz_bwd)
-        if plain:
-            klov.lovasz_hist, klov.lovasz_bwd = klov.lovasz_hist_plain, klov.lovasz_bwd_plain
-        try:
+        for (m, o), (ms, os_) in zip(modules, saved):
+            m.load_state_dict(ms)
+            o.load_state_dict(os_)
+        state.step = step0
+        with plain_versions(kernels if plain else ()):
             _, m = step(state, batch, torch.Generator(device=DEV).manual_seed(5))
-        finally:
-            klov.lovasz_hist, klov.lovasz_bwd = kernels
         results.append({k: float(v) for k, v in m.items()})
-    kern, plain = results
-    print(f"train step, kernels vs plain versions from one state: loss {kern['loss']:.6f} vs "
-          f"{plain['loss']:.6f}, loss_lovasz {kern['loss_lovasz']:.6f} vs {plain['loss_lovasz']:.6f}, "
-          f"grad_norm {kern['grad_norm']:.6f} vs {plain['grad_norm']:.6f}")
-    if _rel(kern["loss"], plain["loss"]) > 1e-4 or _rel(kern["grad_norm"], plain["grad_norm"]) > 1e-2:
-        raise AssertionError("the train step with the kernels disagrees with the plain versions")
+    return tuple(results)
+
+
+def _adversarial_batch(b, src_hw, tgt_hw, seed, device) -> dict:
+    batch = _train_batch(b, *src_hw, seed, device)
+    batch["target_image"] = _train_batch(b, *tgt_hw, seed + 1, device)["image"]
+    return batch
 
 
 def _card_vs_cpu_f32_step(cfg) -> None:
     """One f32 step at 2x64x96 on the card and on the CPU, TF32 off; no
-    augmentation, whose draws differ between a CUDA and a CPU generator."""
+    augmentation, whose draws differ between a CUDA and a CPU generator. An
+    adversarial step uses the default discriminator (cuDNN conv1)."""
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="float32"),
                       augment=dataclasses.replace(cfg.augment, pipeline="no_new_aug"))
+    adversarial = cfg.adversarial.enabled
     out = []
     for device in (DEV, torch.device("cpu")):
         state, step = _train_setup(cfg, device)
-        _, m = step(state, _train_batch(2, 64, 96, 11, device), torch.Generator(device=device))
+        batch = _adversarial_batch(2, (64, 96), (64, 96), 11, device) if adversarial else \
+            _train_batch(2, 64, 96, 11, device)
+        _, m = step(state, batch, torch.Generator(device=device))
         out.append({k: float(v) for k, v in m.items()})
     card, cpu = out
     # the losses within 1e-4; the grad norm within 1e-2: the train-form
@@ -402,11 +553,28 @@ def _card_vs_cpu_f32_step(cfg) -> None:
     # (the ARM gates, n = B) at this size, so the order of its sums moves
     # the gradient by up to a few 1e-3
     tols = {"loss": 1e-4, "loss_ce": 1e-4, "loss_lovasz": 1e-4, "grad_norm": 1e-2}
+    if adversarial:
+        tols.update({"loss_d": 1e-4, "loss_adv_g": 1e-4, "grad_norm_d": 1e-2})
     errs = {k: _rel(card[k], cpu[k]) for k in tols}
-    print("f32 train step, card vs CPU at 2x64x96: " + ", ".join(
+    print(f"f32 {cfg.train_mode} step, card vs CPU at 2x64x96: " + ", ".join(
         f"{k} {card[k]:.6f} vs {cpu[k]:.6f} (rel {errs[k]:.1e})" for k in errs))
     if any(errs[k] > tol for k, tol in tols.items()):
         raise AssertionError("the f32 train step on the card disagrees with the CPU's")
+
+
+def _timed_steps(state, step, batch, gen, steps: int) -> tuple:
+    """``steps`` steps on one batch; (metrics, ms/step by CUDA events over
+    the steps after WARMUP_STEPS)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    metrics = []
+    for i in range(steps):
+        if i == WARMUP_STEPS:
+            start.record()
+        state, m = step(state, batch, gen)
+        metrics.append(m)
+    end.record()
+    torch.cuda.synchronize()
+    return metrics, start.elapsed_time(end) / (steps - WARMUP_STEPS)
 
 
 def phase_train() -> dict:
@@ -418,25 +586,21 @@ def phase_train() -> dict:
 
     state, step = _train_setup(cfg, DEV)
     batch = _train_batch(b, h, w, 21, DEV)
-    _kernels_vs_plain_step(state, step, batch)
+    kern, plain = _kernels_vs_plain_step(state, step, batch, LOVASZ_KERNELS)
+    print(f"train step, kernels vs plain versions from one state: loss {kern['loss']:.6f} vs "
+          f"{plain['loss']:.6f}, loss_lovasz {kern['loss_lovasz']:.6f} vs {plain['loss_lovasz']:.6f}, "
+          f"grad_norm {kern['grad_norm']:.6f} vs {plain['grad_norm']:.6f}")
+    if _rel(kern["loss"], plain["loss"]) > 1e-4 or _rel(kern["grad_norm"], plain["grad_norm"]) > 1e-2:
+        raise AssertionError("the train step with the kernels disagrees with the plain versions")
     state, step = _train_setup(cfg, DEV)  # the 8 steps start from the init
     gen = torch.Generator(device=DEV).manual_seed(7)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     # the main path: the kernels' launches during the train steps only
     klov.hist_launches = klov.bwd_launches = 0
-    metrics = []
-    for i in range(TRAIN_STEPS):
-        if i == WARMUP_STEPS:
-            start.record()
-        state, m = step(state, batch, gen)
-        metrics.append(m)
-    end.record()
-    torch.cuda.synchronize()
+    metrics, ms = _timed_steps(state, step, batch, gen, TRAIN_STEPS)
     launches = {"lovasz_hist": klov.hist_launches, "lovasz_bwd": klov.bwd_launches}
     losses = [float(m["loss"]) for m in metrics]
-    ms = start.elapsed_time(end) / (TRAIN_STEPS - WARMUP_STEPS)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"train {cfg.train_mode} b{b} {h}x{w} bf16: losses " + " ".join(f"{x:.4f}" for x in losses))
     print(f"train: launches {launches} over {TRAIN_STEPS} steps")
@@ -451,14 +615,76 @@ def phase_train() -> dict:
     return launches
 
 
+def phase_adversarial() -> dict:
+    cfg = get_preset("bisenet_adversarial_lovasz")
+    if (cfg.train_size, cfg.data.cityscapes_size) != (SOURCE_HW, TARGET_HW):
+        raise AssertionError(f"the flagship preset trains {cfg.train_size} on {cfg.data.cityscapes_size}")
+    b = cfg.train.batch_size
+    _card_vs_cpu_f32_step(cfg)
+
+    batch = _adversarial_batch(b, SOURCE_HW, TARGET_HW, 31, DEV)
+    state, step = _train_setup(cfg, DEV, fused_conv1=True)
+    kern, plain = _kernels_vs_plain_step(state, step, batch, LOVASZ_KERNELS + CONV4_KERNELS)
+    tols = {"loss": 1e-4, "loss_d": 1e-3, "loss_adv_g": 1e-3, "grad_norm": 1e-2, "grad_norm_d": 1e-2}
+    errs = {k: _rel(kern[k], plain[k]) for k in tols}
+    print("adversarial step, kernels vs plain versions from one state: " + ", ".join(
+        f"{k} {kern[k]:.6f} vs {plain[k]:.6f} (rel {errs[k]:.1e})" for k in tols))
+    if any(errs[k] > tol for k, tol in tols.items()):
+        raise AssertionError("the adversarial step with the kernels disagrees with the plain versions")
+    del state, step
+
+    state, step = _train_setup(cfg, DEV, fused_conv1=True)  # the 8 steps start from the init
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: the kernels' launches during the adversarial steps only
+    klov.hist_launches = klov.bwd_launches = 0
+    kc.fwd_launches = kc.dw_launches = kc.dx_launches = 0
+    metrics, ms = _timed_steps(state, step, batch, gen, TRAIN_STEPS)
+    launches = {"conv4x4s2p1": kc.fwd_launches, "conv4x4s2p1_dw": kc.dw_launches,
+                "conv4x4s2p1_dx": kc.dx_launches, "lovasz_hist": klov.hist_launches,
+                "lovasz_bwd": klov.bwd_launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state, step
+    losses = {k: [float(m[k]) for m in metrics] for k in ("loss", "loss_d", "loss_adv_g", "loss_seg")}
+    (sh, sw), (th, tw) = SOURCE_HW, TARGET_HW
+    for k, v in losses.items():
+        print(f"adversarial {cfg.train_mode} b{b} source {sh}x{sw} target {th}x{tw} "
+              f"{cfg.model.compute_dtype}: {k} "
+              + " ".join(f"{x:.4f}" for x in v))
+    print(f"adversarial: launches {launches} over {TRAIN_STEPS} steps")
+
+    # the same steps with the default discriminator (cuDNN conv1), for comparison
+    state, step = _train_setup(cfg, DEV)
+    _, ms_default = _timed_steps(state, step, batch, torch.Generator(device=DEV).manual_seed(7), TRAIN_STEPS)
+    del state, step
+    print(f"adversarial, default discriminator (cuDNN conv1): {ms_default:.3f} ms/step, "
+          f"{b * 1e3 / ms_default:.1f} source img/s")
+    print(f"adversarial, fused conv1 (K5a-c): {ms:.3f} ms/step, {b * 1e3 / ms:.1f} source img/s (CUDA events "
+          f"over {TRAIN_STEPS - WARMUP_STEPS} steps after {WARMUP_STEPS} warm-up), peak device memory {peak:.2f} GiB")
+
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"non-finite adversarial loss: {losses}")
+    if not np.mean(losses["loss"][-3:]) < losses["loss"][0]:
+        raise AssertionError(f"the loss on a repeated batch did not fall: {losses['loss']}")
+    if abs(losses["loss_d"][0] - np.log(2.0)) > 0.1:
+        raise AssertionError(f"loss_d starts at {losses['loss_d'][0]}, not within 0.1 of ln 2")
+    want = {"conv4x4s2p1": 3, "conv4x4s2p1_dw": 2, "conv4x4s2p1_dx": 1, "lovasz_hist": 1, "lovasz_bwd": 1}
+    if launches != {k: n * TRAIN_STEPS for k, n in want.items()}:
+        raise AssertionError(f"expected per step {want} launches, got {launches} over {TRAIN_STEPS} steps")
+    return launches
+
+
 def main() -> None:
     t0 = time.perf_counter()
     phase_device()
     phase_build()
     k3_times = phase_kernels()
     lovasz_times = phase_lovasz_kernels()
+    conv4_times = phase_conv4_kernels()
     k3_launches = phase_slice()
     train_launches = phase_train()
+    adversarial_launches = phase_adversarial()
     pkg = "rtda_semanticsegmentation_tpu_torch/csrc"
     ref = "rtda_semanticsegmentation_tpu/ops"
     kernels = [{
@@ -468,7 +694,11 @@ def main() -> None:
         "name": name, "route": "cuda", "source": f"{pkg}/lovasz.cu",
         "replaces": f"{ref}/pallas_lovasz.py:{line}", "launches": train_launches[name],
         **lovasz_times[name],
-    } for name, line in (("lovasz_hist", 124), ("lovasz_bwd", 257))]
+    } for name, line in (("lovasz_hist", 124), ("lovasz_bwd", 257))] + [{
+        "name": name, "route": "cuda", "source": f"{pkg}/conv4x4s2.cu",
+        "replaces": f"{ref}/pallas_conv.py:{line}", "launches": adversarial_launches[name],
+        **conv4_times[name],
+    } for name, line in (("conv4x4s2p1", 155), ("conv4x4s2p1_dw", 262), ("conv4x4s2p1_dx", 403))]
     print(f"chip_smoke.py: all phases passed in {time.perf_counter() - t0:.1f} s, the build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

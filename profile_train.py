@@ -1,26 +1,30 @@
 #!/usr/bin/env python3
 """Where the train-step time of the PyTorch port goes on one CUDA GPU.
 
-    python3 profile_train.py
+    python3 profile_train.py [--mode source|flagship|both]
 
-Runs the train configuration of ``chip_smoke.py`` (preset
-``bisenet_source_aug`` with the binned Lovász loss: BiSeNet-R18 in bf16,
-Adam, ``all_four_combined`` augmentation, batch 8 at 512x1024, seeded
-random init, synthetic frames). After 3 warm-up steps it prints, twice (the
-repeat shows the spread):
+Runs the train configurations of ``chip_smoke.py``, seeded random init and
+synthetic frames: ``source``, preset ``bisenet_source_aug`` with the binned
+Lovász loss (BiSeNet-R18 in bf16, Adam, ``all_four_combined`` augmentation,
+batch 8 at 512x1024), and ``flagship``, preset
+``bisenet_adversarial_lovasz`` (the same G plus the FC-Discriminator with
+its first conv on K5a-c; source 720x1280, target 512x1024, batch 8). For
+each, after 3 warm-up steps it prints, twice (the repeat shows the
+spread):
 
 - ms/step by CUDA events over 5 steps, with no profiler attached;
 - the device kernel time per step from ``torch.profiler`` over 3 steps,
   split into kernel groups, and the kernels launched per step;
 - the device idle share, ``1 - kernel ms / step ms``.
 
-Last it times the augmentation alone (``augment_batch`` on the same batch,
-CUDA events over 10 calls), which the elementwise group contains. The last
-line is a JSON summary of all of it.
+Last it times the augmentation alone (``augment_batch`` on the source
+batch, CUDA events over 10 calls), which the elementwise group contains.
+The last line is a JSON summary of all of it.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 
@@ -35,6 +39,9 @@ PROFILED, TIMED, WARMUP = 3, 5, 3
 
 # (group, substrings of the kernel name), first match wins
 GROUPS = (
+    ("K5a conv_fwd_kernel", ("conv_fwd_kernel",)),
+    ("K5b conv_dw_kernel (+ its block reduce)", ("conv_dw_kernel", "conv_dw_reduce")),
+    ("K5c conv_dx_kernel", ("conv_dx_kernel",)),
     ("K1 lovasz_hist (+ its block reduce)", ("lovasz_hist",)),
     ("K2 lovasz_bwd", ("lovasz_bwd",)),
     ("convs, forward and backward (cuDNN / CUTLASS)",
@@ -92,14 +99,23 @@ def profile_steps(state, step, batch, gen) -> dict:
     }
 
 
-def main() -> None:
-    smi = cs.phase_device()
-    cfg = cs.get_preset("bisenet_source_aug")
-    cfg = cfg.replace(loss=dataclasses.replace(cfg.loss, use_lovasz=True))
+def _setup(mode: str):
+    """(cfg, state, step, batch) of one train configuration."""
+    if mode == "source":
+        cfg = cs.get_preset("bisenet_source_aug")
+        cfg = cfg.replace(loss=dataclasses.replace(cfg.loss, use_lovasz=True))
+        state, step = cs._train_setup(cfg, cs.DEV)
+        return cfg, state, step, cs._train_batch(cfg.train.batch_size, *cfg.train_size, 21, cs.DEV)
+    cfg = cs.get_preset("bisenet_adversarial_lovasz")
+    state, step = cs._train_setup(cfg, cs.DEV, fused_conv1=True)
+    batch = cs._adversarial_batch(cfg.train.batch_size, cfg.train_size, cfg.data.cityscapes_size, 31, cs.DEV)
+    return cfg, state, step, batch
+
+
+def profile_mode(mode: str) -> dict:
+    cfg, state, step, batch = _setup(mode)
     h, w = cfg.train_size
     b = cfg.train.batch_size
-    state, step = cs._train_setup(cfg, cs.DEV)
-    batch = cs._train_batch(b, h, w, 21, cs.DEV)
     gen = torch.Generator(device=cs.DEV).manual_seed(7)
     for _ in range(WARMUP):
         state, _ = step(state, batch, gen)
@@ -108,16 +124,29 @@ def main() -> None:
     for _ in range(2):
         r = profile_steps(state, step, batch, gen)
         runs.append(r)
-        print(f"== train step b{b} {h}x{w}: {r['ms']:.3f} ms/step, {b * 1e3 / r['ms']:.1f} img/s "
-              f"(CUDA events, no profiler); kernel time {r['kernel_ms']:.3f} ms/step, "
-              f"{r['kernels_per_step']:.1f} kernels/step, idle share {r['idle_share']:.3f}")
+        print(f"== {mode} train step ({cfg.train_mode}) b{b} {h}x{w}: {r['ms']:.3f} ms/step, "
+              f"{b * 1e3 / r['ms']:.1f} source img/s (CUDA events, no profiler); kernel time "
+              f"{r['kernel_ms']:.3f} ms/step, {r['kernels_per_step']:.1f} kernels/step, "
+              f"idle share {r['idle_share']:.3f}")
         for g, t in sorted(r["groups"].items(), key=lambda kv: -kv[1]):
             print(f"  {t:8.3f} ms  {g}")
         for name, t, n in r["top"]:
             print(f"  {t:8.3f} ms x{n:5.1f}  {name}")
     aug_ms = cs.cuda_ms(lambda: augment_batch(batch["image"], batch["label"], gen, cfg.augment), 10)
-    print(f"augmentation alone ({cfg.augment.pipeline}, {cfg.augment.aug_dtype}): {aug_ms:.3f} ms/step")
-    print(json.dumps({"card": smi, "runs": runs, "augment_ms": aug_ms}))
+    print(f"{mode}: augmentation alone ({cfg.augment.pipeline}, {cfg.augment.aug_dtype}): {aug_ms:.3f} ms/step")
+    return {"runs": runs, "augment_ms": aug_ms}
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--mode", choices=("source", "flagship", "both"), default="both")
+    args = parser.parse_args()
+    smi = cs.phase_device()
+    modes = ("source", "flagship") if args.mode == "both" else (args.mode,)
+    out = {"card": smi}
+    for mode in modes:
+        out[mode] = profile_mode(mode)
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

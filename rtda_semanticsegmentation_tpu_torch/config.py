@@ -27,6 +27,7 @@ class ModelConfig:
     quant_min_ch: int = 128
     quant_clip: float = 1.0  # 1.0 = exact per-channel max|x|, < 1 a quantile
     quant_skip: Tuple[str, ...] = ()
+    disc_ndf: int = 64  # FCDiscriminator base width
 
 
 @dataclass(frozen=True)
@@ -88,7 +89,19 @@ class OptimizerConfig:
 
 @dataclass(frozen=True)
 class AdversarialConfig:
-    enabled: bool = False  # the adversarial modes are not ported yet
+    """Output-space adversarial adaptation: the FC-Discriminator's weight in
+    G's loss, its input pooling and its optimizer."""
+
+    enabled: bool = False
+    lambda_adv: float = 0.002  # weight of G's adversarial BCE term
+    # block-mean the logits by this factor before the softmax D sees; 1 = the
+    # full-resolution maps of the reference
+    disc_downsample: int = 1
+    disc_optimizer: str = "adam"  # adam | sgd (momentum 0.9)
+    disc_learning_rate: float = 2.5e-5
+    disc_adam_b1: float = 0.9
+    disc_adam_b2: float = 0.99
+    disc_weight_decay: float = 0.0  # L2 into the gradient
 
 
 @dataclass(frozen=True)
@@ -138,7 +151,7 @@ class ExperimentConfig:
 
 
 def get_preset(name: str) -> ExperimentConfig:
-    """The JAX package's BiSeNet source-only presets; the others are not
+    """The JAX package's BiSeNet presets; ``deeplabv2_cityscapes`` is not
     ported yet."""
     base = ExperimentConfig()
     if name == "bisenet_source_small":
@@ -152,6 +165,14 @@ def get_preset(name: str) -> ExperimentConfig:
             data=dataclasses.replace(base.data, gta5_size=(512, 1024)),
             augment=dataclasses.replace(base.augment, pipeline="all_four_combined"),
         )
-    if name in ("deeplabv2_cityscapes", "bisenet_adversarial", "bisenet_adversarial_lovasz"):
+    if name == "bisenet_adversarial":
+        return base.replace(adversarial=dataclasses.replace(base.adversarial, enabled=True))
+    if name == "bisenet_adversarial_lovasz":
+        return base.replace(
+            adversarial=dataclasses.replace(base.adversarial, enabled=True),
+            loss=dataclasses.replace(base.loss, use_lovasz=True),
+            augment=dataclasses.replace(base.augment, pipeline="all_four_combined"),
+        )
+    if name == "deeplabv2_cityscapes":
         raise NotImplementedError(f"preset {name!r} is not ported to the PyTorch package yet")
     raise ValueError(f"Unknown preset {name!r}")

@@ -1,0 +1,234 @@
+"""The FC-Discriminator's first conv, 4x4 / stride 2 / pad 1, as CUDA kernels.
+
+Counterparts of ``rtda_semanticsegmentation_tpu/ops/pallas_conv.py``:
+``conv4x4s2p1`` (K5a, forward), ``conv4x4s2p1_dw`` (K5b, weight gradient)
+and ``conv4x4s2p1_dx`` (K5c, input gradient), and its custom VJP
+``fused_conv4x4s2p1`` as :class:`Conv4x4s2p1`. The port's layouts are NCHW
+(``x`` (B, C, H, W), H and W even) and OIHW (``w`` (CO, C, 4, 4) f32).
+
+Rounding, as the TPU kernels round it: the operands of every product are
+rounded to bf16 (x and w forward, x and dy for dW, dy and w for dx), even
+when the model computes in f32; the products add in f32 and the result is
+rounded once to the output dtype. So the fused conv is not an f32 conv.
+
+On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
+tensor it launches the kernel in ``csrc/conv4x4s2.cu`` (built on first use,
+see :mod:`.build`) or raises. The TPU tiling arguments (``block_rows``,
+``chunk``) have no counterpart.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .build import load_library
+
+SOURCE = "csrc/conv4x4s2.cu"
+
+# Launches of the CUDA kernels in this process; the plain versions never count.
+fwd_launches = 0
+dw_launches = 0
+dx_launches = 0
+
+_MAX_C = 20
+_MAX_CO = 64
+_TILE_W = 128  # output columns of a K5a / K5b tile (csrc/conv4x4s2.cu)
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+_lib = None
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _check(x, w):
+    if x.dim() != 4 or x.shape[2] % 2 or x.shape[3] % 2:
+        raise ValueError(f"x must be (B, C, H, W) with H and W even, got {tuple(x.shape)}")
+    if w.dim() != 4 or tuple(w.shape[1:]) != (x.shape[1], 4, 4):
+        raise ValueError(f"w must be (CO, {x.shape[1]}, 4, 4), got {tuple(w.shape)}")
+
+
+def conv4x4s2p1_plain(x, w, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K5a in plain PyTorch, on any device: an f32 conv of the bf16-rounded
+    operands, cast to ``out_dtype``."""
+    _check(x, w)
+    return F.conv2d(_bf16(x), _bf16(w), stride=2, padding=1).to(out_dtype)
+
+
+def conv4x4s2p1_dw_plain(x, dy) -> torch.Tensor:
+    """K5b in plain PyTorch: the (CO, C, 4, 4) f32 weight gradient from the
+    bf16-rounded input and output gradient."""
+    w_shape = (dy.shape[1], x.shape[1], 4, 4)
+    return torch.nn.grad.conv2d_weight(_bf16(x), w_shape, _bf16(dy), stride=2, padding=1)
+
+
+def conv4x4s2p1_dx_plain(dy, w, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K5c in plain PyTorch: the (B, C, 2 Ho, 2 Wo) input gradient from the
+    bf16-rounded output gradient and weights, cast to ``out_dtype``."""
+    b, _, ho, wo = dy.shape
+    x_shape = (b, w.shape[1], 2 * ho, 2 * wo)
+    return torch.nn.grad.conv2d_input(x_shape, _bf16(w), _bf16(dy), stride=2, padding=1).to(out_dtype)
+
+
+def _cuda_operands(*tensors):
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"all operands must be on {dev}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("the 4x4/s2 conv kernels need contiguous operands")
+        if t.numel() >= 2**31:
+            raise ValueError("too many elements for the kernels' 32-bit indices")
+
+
+def _kernel_shape(x_shape, co, *dtypes):
+    b, c, h, wd = x_shape
+    if c > _MAX_C or co > _MAX_CO:
+        raise ValueError(f"the 4x4/s2 conv kernels take C <= {_MAX_C} and CO <= {_MAX_CO}, got {c}, {co}")
+    for dt in dtypes:
+        if dt not in _KERNEL_DTYPES:
+            raise ValueError(f"the 4x4/s2 conv kernels take bf16 or f32, got {dt}")
+    return b, c, h, wd
+
+
+def _blocks(device, tiles: int) -> int:
+    """Persistent blocks, two per SM (each holds ~90 KB of shared memory)."""
+    return max(1, min(tiles, 2 * torch.cuda.get_device_properties(device).multi_processor_count))
+
+
+def _is_bf16(dtype) -> int:
+    return int(dtype == torch.bfloat16)
+
+
+def conv4x4s2p1(x, w, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """(B, C, H, W) x, (CO, C, 4, 4) f32 w -> (B, CO, H/2, W/2) ``out_dtype``."""
+    if x.device.type == "cpu":
+        return conv4x4s2p1_plain(x, w, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv4x4s2p1 runs on CPU or CUDA tensors, got {x.device}")
+    _check(x, w)
+    if w.dtype != torch.float32:
+        raise ValueError(f"w must be f32, got {w.dtype}")
+    _cuda_operands(x, w)
+    co = w.shape[0]
+    b, c, h, wd = _kernel_shape(x.shape, co, x.dtype, out_dtype)
+    y = torch.empty((b, co, h // 2, wd // 2), device=x.device, dtype=out_dtype)
+    tiles = b * (h // 2) * -(-(wd // 2) // _TILE_W)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.conv4x4s2_fwd_launch(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), b, c, h, wd, co,
+            _is_bf16(x.dtype), _is_bf16(out_dtype), _blocks(x.device, tiles),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"conv4x4s2p1 launch failed: CUDA error {err}")
+    global fwd_launches
+    fwd_launches += 1
+    return y
+
+
+def conv4x4s2p1_dw(x, dy) -> torch.Tensor:
+    """(B, C, H, W) x, (B, CO, H/2, W/2) dy -> (CO, C, 4, 4) f32 weight
+    gradient, summed in a fixed order (deterministic on one card)."""
+    if x.device.type == "cpu":
+        return conv4x4s2p1_dw_plain(x, dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv4x4s2p1_dw runs on CPU or CUDA tensors, got {x.device}")
+    if x.dim() != 4 or dy.dim() != 4 or x.shape[2] % 2 or x.shape[3] % 2 or tuple(dy.shape) != (
+            x.shape[0], dy.shape[1], x.shape[2] // 2, x.shape[3] // 2):
+        raise ValueError(f"x (B, C, H, W) with H, W even and dy (B, CO, H/2, W/2), got "
+                         f"{tuple(x.shape)}, {tuple(dy.shape)}")
+    b, c, h, wd = x.shape
+    co = dy.shape[1]
+    _cuda_operands(x, dy)
+    _kernel_shape(x.shape, co, x.dtype, dy.dtype)
+    blocks = _blocks(x.device, b * (h // 2) * -(-(wd // 2) // _TILE_W))
+    partial = torch.empty((blocks, c * 16 * _MAX_CO), device=x.device, dtype=torch.float32)
+    dw = torch.empty((co, c, 4, 4), device=x.device, dtype=torch.float32)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.conv4x4s2_dw_launch(
+            x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(), b, c, h, wd, co,
+            _is_bf16(x.dtype), _is_bf16(dy.dtype), blocks, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"conv4x4s2p1_dw launch failed: CUDA error {err}")
+    global dw_launches
+    dw_launches += 1
+    return dw
+
+
+def conv4x4s2p1_dx(dy, w, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """(B, CO, Ho, Wo) dy, (CO, C, 4, 4) f32 w -> (B, C, 2 Ho, 2 Wo)
+    ``out_dtype`` input gradient."""
+    if dy.device.type == "cpu":
+        return conv4x4s2p1_dx_plain(dy, w, out_dtype)
+    if dy.device.type != "cuda":
+        raise ValueError(f"conv4x4s2p1_dx runs on CPU or CUDA tensors, got {dy.device}")
+    if dy.dim() != 4 or w.dim() != 4 or tuple(w.shape[2:]) != (4, 4) or w.shape[0] != dy.shape[1]:
+        raise ValueError(f"dy (B, CO, Ho, Wo) and w (CO, C, 4, 4), got {tuple(dy.shape)}, {tuple(w.shape)}")
+    if w.dtype != torch.float32:
+        raise ValueError(f"w must be f32, got {w.dtype}")
+    _cuda_operands(dy, w)
+    b, co, ho, wo = dy.shape
+    x_shape = (b, w.shape[1], 2 * ho, 2 * wo)
+    _, c, h, wd = _kernel_shape(x_shape, co, dy.dtype, out_dtype)
+    dx = torch.empty(x_shape, device=dy.device, dtype=out_dtype)
+    tiles = b * (ho + 1) * -(-wd // (2 * _TILE_W))
+    lib = _library()
+    with torch.cuda.device(dy.device):
+        err = lib.conv4x4s2_dx_launch(
+            dy.data_ptr(), w.data_ptr(), dx.data_ptr(), b, c, h, wd, co,
+            _is_bf16(dy.dtype), _is_bf16(out_dtype), _blocks(dy.device, tiles),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"conv4x4s2p1_dx launch failed: CUDA error {err}")
+    global dx_launches
+    dx_launches += 1
+    return dx
+
+
+class Conv4x4s2p1(torch.autograd.Function):
+    """Differentiable fused 4x4/s2/p1 conv (the JAX package's
+    ``fused_conv4x4s2p1``): K5a forward; the backward runs K5b only when
+    ``w`` needs a gradient and K5c only when ``x`` does. The module-level
+    wrappers are looked up at each call, so swapping them (for their plain
+    versions) swaps what the Function runs."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_dtype):
+        ctx.save_for_backward(x, w)
+        return conv4x4s2p1(x, w, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = conv4x4s2p1_dx(dy, w, x.dtype) if ctx.needs_input_grad[0] else None
+        dw = conv4x4s2p1_dw(x, dy).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
+def fused_conv4x4s2p1(x, w, out_dtype=torch.bfloat16) -> torch.Tensor:
+    return Conv4x4s2p1.apply(x, w, out_dtype)
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = load_library(SOURCE)
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        lib.conv4x4s2_fwd_launch.argtypes = [p, p, p] + [i] * 8 + [p]
+        lib.conv4x4s2_fwd_launch.restype = i
+        lib.conv4x4s2_dw_launch.argtypes = [p, p, p, p] + [i] * 8 + [p]
+        lib.conv4x4s2_dw_launch.restype = i
+        lib.conv4x4s2_dx_launch.argtypes = [p, p, p] + [i] * 8 + [p]
+        lib.conv4x4s2_dx_launch.restype = i
+        _lib = lib
+    return _lib

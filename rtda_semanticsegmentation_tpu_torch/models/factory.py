@@ -1,8 +1,9 @@
 """Model construction, seeded initialization and weight loading.
 
 Port of the JAX ``models/factory.py`` for BiSeNet with the ResNet-18
-context path. A model's "variables" in the port are its ``state_dict``;
-``models/convert.py`` maps them to and from the JAX package's flat keys.
+context path and for the FC-Discriminator. A model's "variables" in the
+port are its ``state_dict``; ``models/convert.py`` maps them to and from the
+JAX package's flat keys.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from ..config import ModelConfig
 from .bisenet import BiSeNet
 from .convert import QUANT_FROZEN, QUANT_STATS
+from .discriminator import FCDiscriminator
 from .layers import Conv, QuantPolicy
 
 
@@ -55,6 +57,28 @@ def init_model(model: torch.nn.Module, generator: torch.Generator) -> Dict[str, 
             module.weight.copy_(w)
             if module.bias is not None:
                 module.bias.zero_()
+    return model.state_dict()
+
+
+def build_discriminator(cfg: ModelConfig, device="cuda", fused_conv1: bool = False) -> FCDiscriminator:
+    """The FC-Discriminator for ``cfg`` (``num_classes`` in, ``disc_ndf``
+    wide, computing in ``compute_dtype``) on ``device``, with uninitialized
+    parameters. ``fused_conv1`` is the JAX module's field of that name: the
+    first conv on the 4x4/s2 kernels K5a-c."""
+    return FCDiscriminator(cfg.num_classes, cfg.disc_ndf, dtype=getattr(torch, cfg.compute_dtype),
+                           fused_conv1=fused_conv1).to(device)
+
+
+@torch.no_grad()
+def init_discriminator(model: torch.nn.Module, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """Fill every kernel with N(0, 0.02) draws from ``generator`` (a CPU
+    generator) and every bias with zeros, the JAX package's
+    ``normal_init(0.02)``. Returns the model's state_dict."""
+    for name, p in model.named_parameters():
+        if name.endswith("weight"):
+            p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
+        else:
+            p.zero_()
     return model.state_dict()
 
 

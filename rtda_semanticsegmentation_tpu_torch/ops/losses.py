@@ -12,6 +12,8 @@ computes in at least f32.
   path. Its forward histograms run on kernel K1 and its backward on kernel
   K2 (``kernels/lovasz.py``); the post-processing over (C, bins) is plain
   PyTorch.
+- :func:`bce_with_logits`: the discriminator's mean binary cross-entropy
+  against a constant target.
 """
 
 from __future__ import annotations
@@ -179,3 +181,14 @@ def lovasz_softmax_binned(probas, labels, ignore_index=255, classes: str = "pres
     same ``classes``, ``bins`` and ``interp`` semantics."""
     _radix_factors(bins)
     return LovaszSoftmaxBinned.apply(probas, labels, ignore_index, classes, bins, interp)
+
+
+def bce_with_logits(logits: torch.Tensor, targets) -> torch.Tensor:
+    """Mean binary cross-entropy with logits against a broadcast target, in
+    at least f32, in the JAX package's stable form
+    ``max(x, 0) - x z + log1p(exp(-|x|))`` (``torch.maximum`` splits the
+    gradient at a tie as ``jnp.maximum`` does)."""
+    x = _at_least_f32(logits)
+    z = torch.as_tensor(targets, dtype=x.dtype, device=x.device)
+    loss = torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device)) - x * z
+    return (loss + torch.log1p(torch.exp(-x.abs()))).mean()

@@ -1,4 +1,5 @@
-"""The generator's optimizer (port of the JAX ``train/optim.py``).
+"""The generator's and the discriminator's optimizers (port of the JAX
+``train/optim.py``).
 
 SGD(momentum) or Adam, with the reference's weight decay: torch's L2 added
 into the gradient before the optimizer's own update, as
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ..config import OptimizerConfig
+from ..config import AdversarialConfig, OptimizerConfig
 
 
 def build_generator_tx(cfg: OptimizerConfig, model: torch.nn.Module, freeze_bn: bool = False,
@@ -38,3 +39,17 @@ def build_generator_tx(cfg: OptimizerConfig, model: torch.nn.Module, freeze_bn: 
     if cfg.name == "adam":
         return torch.optim.Adam(params, lr=cfg.learning_rate, betas=(cfg.adam_b1, cfg.adam_b2), eps=1e-8)
     raise ValueError(f"unknown optimizer {cfg.name!r}; options: sgd, adam")
+
+
+def build_discriminator_tx(cfg: AdversarialConfig, model: torch.nn.Module) -> torch.optim.Optimizer:
+    """The discriminator's optimizer: Adam with ``(disc_adam_b1,
+    disc_adam_b2)``, or SGD with momentum 0.9, at ``disc_learning_rate``
+    with ``disc_weight_decay`` as L2 into the gradient."""
+    params = list(model.parameters())
+    if cfg.disc_optimizer == "adam":
+        return torch.optim.Adam(params, lr=cfg.disc_learning_rate, betas=(cfg.disc_adam_b1, cfg.disc_adam_b2),
+                                eps=1e-8, weight_decay=cfg.disc_weight_decay)
+    if cfg.disc_optimizer == "sgd":
+        return torch.optim.SGD(params, lr=cfg.disc_learning_rate, momentum=0.9,
+                               weight_decay=cfg.disc_weight_decay)
+    raise ValueError(f"unknown disc optimizer {cfg.disc_optimizer!r}; options: adam, sgd")

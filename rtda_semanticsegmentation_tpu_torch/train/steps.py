@@ -1,28 +1,42 @@
-"""The train step of the source-only modes (port of the JAX
-``train/steps.py``): ``vanilla`` (CE) and ``lovasz`` (CE + w * Lovász).
+"""The train step (port of the JAX ``train/steps.py``): the source-only
+modes ``vanilla`` (CE) and ``lovasz`` (CE + w * Lovász), and the
+adversarial modes ``adversarial`` and ``adversarial_lovasz``.
 
-One step: on-device augmentation and normalization of the uint8 batch, a
-train-mode forward (BatchNorm batch statistics, running statistics
+A source-only step: on-device augmentation and normalization of the uint8
+batch, a train-mode forward (BatchNorm batch statistics, running statistics
 updated), the loss, the backward, the poly learning rate and one optimizer
 update. With the binned Lovász loss the forward histograms run on kernel K1
-and the backward on kernel K2. The step reads nothing back to the host, so
-it never waits for the device; its metrics are device tensors.
+and the backward on kernel K2.
 
-The adversarial modes are not ported yet.
+An adversarial step (the reference's ``train.py:238-313``): one train-mode
+G forward on the source and one on the target, BatchNorm statistics updated
+in that order; the discriminator steps first, on the detached softmax maps
+(source real = 1, target fake = 0, loss x 0.5); then G's loss, the
+segmentation loss plus ``lambda_adv`` times the BCE of the *updated* D on
+the live target map against "real", flows back through D into G and only G
+steps. With ``fused_conv1`` D's first conv runs on kernels K5a-c: K5a on
+each of the three D forwards, K5b on the D step's two backward passes, K5c
+on G's path back through D.
+
+The step reads nothing back to the host, so it never waits for the device;
+its metrics are device tensors.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..config import ExperimentConfig
 from ..ops.augment import augment_batch, normalize_u8
-from ..ops.losses import cross_entropy_with_ignore, lovasz_softmax, lovasz_softmax_binned
+from ..ops.losses import bce_with_logits, cross_entropy_with_ignore, lovasz_softmax, lovasz_softmax_binned
 from .state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
+
+REAL_LABEL = 1.0  # source domain
+FAKE_LABEL = 0.0  # target domain
 
 
 def _prep_source(batch, generator, cfg: ExperimentConfig):
@@ -34,6 +48,46 @@ def _prep_source(batch, generator, cfg: ExperimentConfig):
         return augment_batch(images_u8, labels, generator, cfg.augment)
     dt = torch.promote_types(getattr(torch, cfg.model.compute_dtype), torch.float32)
     return normalize_u8(images_u8, cfg.augment, dtype=dt), labels
+
+
+def _block_mean(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Average-pool a (B, C, H, W) map by ``factor`` per spatial axis
+    (``adversarial.disc_downsample``); 1 is the identity."""
+    if factor == 1:
+        return x
+    b, c, h, w = x.shape
+    if h % factor or w % factor:
+        raise ValueError(
+            f"adversarial.disc_downsample={factor} must divide the train "
+            f"resolution; got a {h}x{w} map"
+        )
+    return x.reshape(b, c, h // factor, factor, w // factor, factor).mean(dim=(3, 5))
+
+
+def _disc_input(pred: torch.Tensor, pool: int, dtype: torch.dtype) -> torch.Tensor:
+    """What D consumes: the softmax, in at least f32, of the block-mean
+    pooled logits, cast to the compute dtype in contiguous NCHW (the layout
+    the K5 kernels read; the cast is the one pass that writes it)."""
+    pooled = _block_mean(pred, pool)
+    if min(pooled.shape[2], pooled.shape[3]) < 32:
+        raise ValueError(
+            f"discriminator input {pooled.shape[2]}x{pooled.shape[3]} (train "
+            f"resolution / disc_downsample={pool}) is below the 32-pixel minimum "
+            "side the 5-conv stride-2 trunk supports — lower "
+            "adversarial.disc_downsample or raise the train resolution"
+        )
+    probs = torch.softmax(pooled.to(torch.promote_types(pooled.dtype, torch.float32)), dim=1)
+    return probs.to(dtype, memory_format=torch.contiguous_format)
+
+
+def _grad_norm(module: torch.nn.Module) -> torch.Tensor:
+    return torch.nn.utils.get_total_norm([p.grad for p in module.parameters() if p.grad is not None])
+
+
+def _update(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    optimizer.step()
 
 
 def _apply_train(model: torch.nn.Module, x: torch.Tensor, aux: bool):
@@ -64,39 +118,46 @@ def _seg_loss(logits, labels, cfg: ExperimentConfig, aux: Tuple = ()) -> Tuple[t
     return total, parts
 
 
-def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float]):
+def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
+                    d_schedule: Optional[Callable[[int], float]] = None):
     """``step(state, batch, generator) -> (state, metrics)``.
 
-    ``batch`` holds uint8 NHWC ``image`` and int32 NHW ``label`` on the
-    device; ``generator`` is a ``torch.Generator`` on that device, the
-    source of the augmentation draws. The step updates ``state.model`` and
-    ``state.optimizer`` in place and advances ``state.step``; update ``t``
-    runs at learning rate ``state.schedule(t)``. The metrics are device
-    tensors: ``loss``, ``lr`` (``g_schedule`` of the update), ``grad_norm``
-    (global L2 norm of the gradients), ``loss_ce`` and, when on,
-    ``loss_lovasz`` and ``loss_aux``.
+    ``batch`` holds uint8 NHWC ``image``, int32 NHW ``label`` and, in the
+    adversarial modes, uint8 NHWC ``target_image``, on the device;
+    ``generator`` is a ``torch.Generator`` on that device, the source of the
+    augmentation draws. The step updates ``state.model`` and
+    ``state.optimizer`` (and ``state.discriminator`` and
+    ``state.d_optimizer``) in place and advances ``state.step``; update
+    ``t`` runs at learning rates ``state.schedule(t)`` and
+    ``state.d_schedule(t)``. The metrics are device tensors: ``loss``,
+    ``lr`` (``g_schedule`` of the update), ``grad_norm`` (global L2 norm of
+    G's gradients), ``loss_ce`` and, when on, ``loss_lovasz`` and
+    ``loss_aux``; the adversarial modes add ``loss_d``, ``lr_d``
+    (``d_schedule``), ``grad_norm_d``, ``loss_seg`` and ``loss_adv_g``.
     """
-    if cfg.train_mode not in ("vanilla", "lovasz"):
-        raise NotImplementedError(f"train mode {cfg.train_mode!r} is not ported to the PyTorch package yet")
     if cfg.train.remat:
         raise NotImplementedError("train.remat is not ported to the PyTorch package yet")
+    adversarial = cfg.adversarial.enabled
+    if adversarial and cfg.adversarial.disc_downsample < 1:
+        raise ValueError(
+            "adversarial.disc_downsample must be >= 1, got "
+            f"{cfg.adversarial.disc_downsample}"
+        )
+    if adversarial and d_schedule is None:
+        raise ValueError("the adversarial modes need d_schedule")
     compute_dtype = getattr(torch, cfg.model.compute_dtype)
     use_aux = bool(cfg.loss.aux_weight)
 
-    def step(state: TrainState, batch, generator) -> Tuple[TrainState, Metrics]:
+    def source_step(state: TrainState, batch, generator) -> Tuple[TrainState, Metrics]:
         images, labels = _prep_source(batch, generator, cfg)
         # NHWC -> NCHW view: channels_last memory, which the convs read as it is
         x = images.to(compute_dtype).permute(0, 3, 1, 2)
         logits, sup1, sup2 = _apply_train(state.model, x, use_aux)
         loss, parts = _seg_loss(logits, labels, cfg, aux=(sup1, sup2))
-        opt = state.optimizer
-        opt.zero_grad(set_to_none=True)
+        state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        grad_norm = torch.nn.utils.get_total_norm(
-            [p.grad for p in state.model.parameters() if p.grad is not None])
-        for group in opt.param_groups:
-            group["lr"] = state.schedule(state.step)
-        opt.step()
+        grad_norm = _grad_norm(state.model)
+        _update(state.optimizer, state.schedule(state.step))
         metrics = {
             "loss": loss.detach(),
             "lr": torch.full((), g_schedule(state.step), device=loss.device),
@@ -106,4 +167,51 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float]):
         state.step += 1
         return state, metrics
 
-    return step
+    def adversarial_step(state: TrainState, batch, generator) -> Tuple[TrainState, Metrics]:
+        images_s, labels_s = _prep_source(batch, generator, cfg)
+        images_t = normalize_u8(batch["target_image"], cfg.augment,
+                                dtype=torch.promote_types(compute_dtype, torch.float32))
+        g, d = state.model, state.discriminator
+        # one G forward per domain, source first (BatchNorm statistics in that
+        # order); its graph serves G's backward
+        pred_s, sup1, sup2 = _apply_train(g, images_s.to(compute_dtype).permute(0, 3, 1, 2), use_aux)
+        pred_t, _, _ = _apply_train(g, images_t.to(compute_dtype).permute(0, 3, 1, 2), False)
+        pool = cfg.adversarial.disc_downsample
+        sm_t_live = _disc_input(pred_t, pool, compute_dtype)
+
+        # D first, on the detached maps
+        sm_s = _disc_input(pred_s.detach(), pool, compute_dtype)
+        sm_t = sm_t_live.detach()
+        state.d_optimizer.zero_grad(set_to_none=True)
+        loss_d = 0.5 * (bce_with_logits(d(sm_s), REAL_LABEL) + bce_with_logits(d(sm_t), FAKE_LABEL))
+        loss_d.backward()
+        grad_norm_d = _grad_norm(d)
+        _update(state.d_optimizer, state.d_schedule(state.step))
+
+        # G through the updated D: D's parameters take no gradient
+        loss_seg, parts = _seg_loss(pred_s, labels_s, cfg, aux=(sup1, sup2))
+        d.requires_grad_(False)
+        try:
+            loss_adv = bce_with_logits(d(sm_t_live), REAL_LABEL)
+        finally:
+            d.requires_grad_(True)
+        loss = loss_seg + cfg.adversarial.lambda_adv * loss_adv
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        grad_norm = _grad_norm(g)
+        _update(state.optimizer, state.schedule(state.step))
+        metrics = {
+            "loss": loss.detach(),
+            "loss_d": loss_d.detach(),
+            "lr": torch.full((), g_schedule(state.step), device=loss.device),
+            "lr_d": torch.full((), d_schedule(state.step), device=loss.device),
+            "grad_norm": grad_norm,
+            "grad_norm_d": grad_norm_d,
+            **{k: v.detach() for k, v in parts.items()},
+            "loss_seg": loss_seg.detach(),
+            "loss_adv_g": loss_adv.detach(),
+        }
+        state.step += 1
+        return state, metrics
+
+    return adversarial_step if adversarial else source_step

@@ -5,15 +5,16 @@ PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerance: none, except the Lovász histogram's f32 error sums, which add
-in another order (stated at the test); the kernels round like their plain
-versions.
+Tolerance: none, except the Lovász histogram's f32 error sums and the
+4x4/s2 conv kernels' f32 sums, which add in another order (stated at the
+tests); the kernels round like their plain versions.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from rtda_semanticsegmentation_tpu_torch.kernels import conv4x4 as kc
 from rtda_semanticsegmentation_tpu_torch.kernels import int8_conv as k3
 from rtda_semanticsegmentation_tpu_torch.kernels import lovasz as klov
 from rtda_semanticsegmentation_tpu_torch.ops.losses import lovasz_softmax_binned
@@ -118,3 +119,84 @@ def test_binned_lovasz_launches_each_kernel_once_and_matches_the_cpu():
     assert out["cuda"][2] == (1, 1) and out["cpu"][2] == (0, 0)
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-6, atol=0)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-6, atol=0)
+
+
+# (B, C, H, W, CO): the discriminator's conv1 at a small size, an odd
+# channel count, and a width with ragged tiles
+CONV4_SHAPES = [(2, 19, 64, 96, 64), (1, 7, 12, 20, 16), (1, 19, 36, 300, 64)]
+
+
+def _assert_conv4_close(got, want, bf16: bool):
+    """f32 output: max |diff| <= 1e-5 * max |want| (the same f32 products,
+    summed in another order); bf16 output: within one bf16 ulp of the plain
+    version plus that (two f32 sums a few ulps apart can round to
+    neighbouring bf16 values, and an output that cancels to far below its
+    terms moves by more than its own ulp before it is rounded)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    got, want = got.float(), want.float()
+    f32_tol = 1e-5 * want.abs().max().item()
+    if bf16:
+        _, e = torch.frexp(want)
+        assert bool(((got - want).abs() <= torch.ldexp(torch.ones_like(want), e - 8) + f32_tol).all())
+    else:
+        assert (got - want).abs().max().item() <= f32_tol
+
+
+def _conv4_case(b, c, h, w, co, dtype):
+    g = torch.Generator(device="cuda").manual_seed(b * 1000 + c * 10 + co)
+    x = torch.softmax(torch.randn((b, c, h, w), generator=g, device="cuda") * 3.0, dim=1).to(dtype)
+    wt = torch.randn((co, c, 4, 4), generator=g, device="cuda") * 0.02
+    dy = (torch.randn((b, co, h // 2, w // 2), generator=g, device="cuda") * 1e-3).to(dtype)
+    return x, wt, dy
+
+
+@pytest.fixture
+def no_tf32():
+    """The plain versions' f32 convs on cuDNN in full f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,c,h,w,co", CONV4_SHAPES)
+def test_conv4x4_kernels_match_plain_versions(b, c, h, w, co, dtype, no_tf32):
+    """K5a and K5c at the module's tolerance; K5b (f32) within
+    1e-5 * max |want|: its sums over every pixel run in another order."""
+    x, wt, dy = _conv4_case(b, c, h, w, co, dtype)
+    bf16 = dtype == torch.bfloat16
+    before = (kc.fwd_launches, kc.dw_launches, kc.dx_launches)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        _assert_conv4_close(kc.conv4x4s2p1(x, wt, out_dtype), kc.conv4x4s2p1_plain(x, wt, out_dtype),
+                            out_dtype == torch.bfloat16)
+    dw = kc.conv4x4s2p1_dw(x, dy)
+    want_dw = kc.conv4x4s2p1_dw_plain(x, dy)
+    assert dw.dtype == torch.float32 and dw.shape == (co, c, 4, 4)
+    assert (dw - want_dw).abs().max().item() <= 1e-5 * want_dw.abs().max().item()
+    _assert_conv4_close(kc.conv4x4s2p1_dx(dy, wt, dtype), kc.conv4x4s2p1_dx_plain(dy, wt, dtype), bf16)
+    torch.cuda.synchronize()
+    assert (kc.fwd_launches, kc.dw_launches, kc.dx_launches) == (before[0] + 2, before[1] + 1, before[2] + 1)
+    # the weight gradient is summed in a fixed order: the same bits twice
+    assert torch.equal(kc.conv4x4s2p1_dw(x, dy), dw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_grad,w_grad", [(True, True), (False, True), (True, False)])
+def test_fused_conv4x4_launches_only_the_needed_kernels(x_grad, w_grad, no_tf32):
+    """One forward and backward of the autograd Function: one K5a launch,
+    K5b only for a weight gradient and K5c only for an input gradient."""
+    x, wt, _ = _conv4_case(2, 19, 64, 96, 64, torch.bfloat16)
+    x.requires_grad_(x_grad)
+    wt.requires_grad_(w_grad)
+    before = (kc.fwd_launches, kc.dw_launches, kc.dx_launches)
+    kc.fused_conv4x4s2p1(x, wt, torch.bfloat16).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (kc.fwd_launches, kc.dw_launches, kc.dx_launches) == (
+        before[0] + 1, before[1] + int(w_grad), before[2] + int(x_grad))
+    assert (x.grad is not None) == x_grad and (wt.grad is not None) == w_grad

@@ -157,6 +157,8 @@ PORT_ENTRY_MODULES = (
     "rtda_semanticsegmentation_tpu_torch.models.quantize",
     "rtda_semanticsegmentation_tpu_torch.cli.predict",
     "rtda_semanticsegmentation_tpu_torch.kernels.lovasz",
+    "rtda_semanticsegmentation_tpu_torch.kernels.conv4x4",
+    "rtda_semanticsegmentation_tpu_torch.models.discriminator",
     "rtda_semanticsegmentation_tpu_torch.ops.losses",
     "rtda_semanticsegmentation_tpu_torch.ops.augment",
     "rtda_semanticsegmentation_tpu_torch.train.steps",
@@ -167,16 +169,27 @@ PORT_ENTRY_MODULES = (
 
 
 def test_port_imports_no_jax():
-    """After each import of the port's modules and scripts, no jax, jaxlib,
-    flax or optax module and nothing of the JAX package is loaded."""
+    """After each import of the port's modules and scripts, and after the
+    adversarial train step and its fused discriminator are built, no jax,
+    jaxlib, flax or optax module and nothing of the JAX package is
+    loaded."""
     code = (
         "import importlib, sys\n"
-        f"for name in {PORT_ENTRY_MODULES!r}:\n"
-        "    importlib.import_module(name)\n"
+        "def check(what):\n"
         "    bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "           ('jax', 'jaxlib', 'flax', 'optax', 'rtda_semanticsegmentation_tpu')]\n"
         "    if bad:\n"
-        "        sys.exit(f'{name} loads {bad[:5]}')\n"
+        "        sys.exit(f'{what} loads {bad[:5]}')\n"
+        f"for name in {PORT_ENTRY_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "    check(name)\n"
+        "from rtda_semanticsegmentation_tpu_torch.config import get_preset\n"
+        "from rtda_semanticsegmentation_tpu_torch.models.factory import build_discriminator\n"
+        "from rtda_semanticsegmentation_tpu_torch.train.steps import make_train_step\n"
+        "cfg = get_preset('bisenet_adversarial_lovasz')\n"
+        "build_discriminator(cfg.model, device='cpu', fused_conv1=True)\n"
+        "make_train_step(cfg, lambda t: 1e-4, lambda t: 2.5e-5)\n"
+        "check('the adversarial step')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
