@@ -8,9 +8,10 @@ without a device it raises and prints no result. Phases, each raising on
 failure:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compiles ``csrc/int8_conv.cu``, ``csrc/lovasz.cu`` and
-   ``csrc/conv4x4s2.cu`` for sm_90a into build/kernels/, one nvcc each,
-   started together; prints the ptxas reports;
+2. build: compiles ``csrc/int8_conv.cu``, ``csrc/lovasz.cu``,
+   ``csrc/conv4x4s2.cu`` and ``csrc/conv3x3.cu`` for sm_90a into
+   build/kernels/, one nvcc each, started together; prints the ptxas
+   reports;
 3. kernels: the s8 conv kernel (K3) against its plain PyTorch version at
    every quantized conv shape of BiSeNet-R18 at 512x1024, batch 8: bf16
    outputs and requantized s8 codes must be bit-identical; the Lovász
@@ -18,16 +19,33 @@ failure:
    shape, (8, 19, 512*1024) softmax probabilities with ~10% ignore labels:
    K1's count and fg rows and all of K2's output (both table forms) must be
    identical, K1's error sums within 1e-4 relative (f32 sums of up to 4 M
-   terms in another order). Times each kernel, its plain version and its
-   bound;
+   terms in another order), and K1 again at 1024 bins, where it splits the
+   classes over two block groups, to the same tolerance; the 3x3 conv (K4)
+   against its plain version at every distinct shape of the three serve
+   paths below, with and without its epilogue: f32 output within 1e-5 *
+   max |ref|, bf16 output within one bf16 ulp + 1e-5 * max |ref| (f32 sums
+   in another order). Times each kernel, its plain version, its bound and,
+   for K4, cuDNN's bf16 ``channels_last`` conv alone;
 4. serve: BiSeNet-R18 with seeded random weights, calibrated on 2 batches
    of 8 synthetic frames and frozen, serves 4 requests of 8 frames through
    ``make_serving_fn`` in bf16 and int8. Masks must be uint8 (8, 512, 1024)
    below 19, logits finite, each int8 request must launch K3 exactly 15
    times, and the int8 masks must match those of the same model with the
    kernel swapped for its plain version (>= 0.999 of pixels); the f32
-   forward on the card must match the CPU's on a small input. Prints img/s;
-5. train: the ``bisenet_source_aug`` preset with the binned Lovász loss
+   forward on the card must match the CPU's on a small input. Then bf16
+   with ``fused_conv3``: 14 K4 launches per request, checked as in phase 5.
+   Prints img/s;
+5. R101: BiSeNet-R101 and DeepLabV2, seeded random weights, each checked
+   first in f32 on the card against the CPU (2x64x128; DeepLabV2 1x65x129,
+   within 1e-3 * max |logit|, argmax agreement >= 0.999), then serving 4
+   requests of 8 frames at 512x1024 in bf16 with ``fused_conv3`` off and
+   on: valid masks, finite logits, exactly 31 and 33 K4 launches per
+   request, every K4 launch of a request within one bf16 ulp of its plain
+   version on the same operands, masks >= 0.995 equal to those with K4
+   swapped for its plain version where the logits do not nearly tie
+   (``_k4_serving`` says why not 0.999 of all pixels).
+   Prints img/s both ways and the agreement of K4's masks with cuDNN's;
+6. train: the ``bisenet_source_aug`` preset with the binned Lovász loss
    (BiSeNet-R18, bf16, Adam, ``all_four_combined`` augmentation, batch 8 at
    512x1024) from a seeded init on synthetic frames and structured labels.
    From one saved state, a step with the kernels and a step with their plain
@@ -39,7 +57,7 @@ failure:
    below the first, K1 and K2 launched exactly once per step. Prints
    ms/step and img/s (CUDA events, after 3 warm-up steps) and the peak
    device memory;
-6. adversarial: the flagship preset ``bisenet_adversarial_lovasz``
+7. adversarial: the flagship preset ``bisenet_adversarial_lovasz``
    (BiSeNet-R18 + FC-Discriminator, bf16, binned Lovász, ``all_four_combined``
    augmentation, batch 8, source 720x1280, target 512x1024) with the
    discriminator's first conv on K5a-c. An f32 step at 2x64x96 on the card
@@ -72,6 +90,7 @@ import torch
 
 from rtda_semanticsegmentation_tpu_torch.config import AugmentConfig, ModelConfig, get_preset
 from rtda_semanticsegmentation_tpu_torch.kernels import build as kbuild
+from rtda_semanticsegmentation_tpu_torch.kernels import conv3x3 as k4
 from rtda_semanticsegmentation_tpu_torch.kernels import conv4x4 as kc
 from rtda_semanticsegmentation_tpu_torch.kernels import int8_conv as k3
 from rtda_semanticsegmentation_tpu_torch.kernels import lovasz as klov
@@ -122,6 +141,22 @@ SOURCE_HW, TARGET_HW = (720, 1280), (512, 1024)
 # plain versions swapped in for each kernel of a path: (module, wrapper)
 LOVASZ_KERNELS = ((klov, "lovasz_hist"), (klov, "lovasz_bwd"))
 CONV4_KERNELS = ((kc, "conv4x4s2p1"), (kc, "conv4x4s2p1_dw"), (kc, "conv4x4s2p1_dx"))
+CONV3_KERNELS = ((k4, "conv3x3"),)
+# K4's convs per forward with fused_conv3 at b8 512x1024: (where, C, CO,
+# H, W, dilation, convs per forward of each model)
+CONV3_SHAPES = (
+    ("layer1 3x3", 64, 64, 128, 256, 1, {"r18": 4, "r101": 3}),
+    ("layer2 3x3", 128, 128, 64, 128, 1, {"r18": 3, "r101": 3}),
+    ("layer3 3x3", 256, 256, 32, 64, 1, {"r18": 3, "r101": 22}),
+    ("layer4 3x3", 512, 512, 16, 32, 1, {"r18": 3, "r101": 2}),
+    ("ffm convblock (R18)", 1024, 19, 64, 128, 1, {"r18": 1}),
+    ("ffm convblock (R101)", 3328, 19, 64, 128, 1, {"r101": 1}),
+    ("deeplab layer1 3x3", 64, 64, 129, 257, 1, {"deeplabv2": 3}),
+    ("deeplab layer2 3x3", 128, 128, 65, 129, 1, {"deeplabv2": 4}),
+    ("deeplab layer3 3x3 d2", 256, 256, 65, 129, 2, {"deeplabv2": 23}),
+    ("deeplab layer4 3x3 d4", 512, 512, 65, 129, 4, {"deeplabv2": 3}),
+)
+K4_CONVS = {"r18": 14, "r101": 31, "deeplabv2": 33}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -154,8 +189,9 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
-        for f in [pool.submit(k3._library), pool.submit(klov._library), pool.submit(kc._library)]:
+    libraries = (k3._library, klov._library, kc._library, k4._library)
+    with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, started together
+        for f in [pool.submit(lib) for lib in libraries]:
             f.result()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {kbuild.nvcc_path()})")
     for source, info in kbuild.build_log.items():
@@ -240,6 +276,29 @@ def _lovasz_case():
     return probas, labels
 
 
+def _lovasz_hist_at(probas, labels, bins: int) -> None:
+    """K1 where its histogram outgrows one block's shared memory and the
+    classes split over block groups: counts identical, error sums within
+    1e-4 relative."""
+    cg, groups, _ = klov.class_groups(CLASSES, bins)
+    hist = klov.lovasz_hist(probas, labels, bins, 255)
+    ref = klov.lovasz_hist_plain(probas, labels, bins, 255)
+    torch.cuda.synchronize()
+    if not torch.equal(hist[:, :2], ref[:, :2]):
+        wrong = (hist[:, :2] != ref[:, :2]).sum().item()
+        raise AssertionError(f"K1 at {bins} bins: {wrong} count/fg entries differ from the plain version")
+    err = (hist[:, 2] - ref[:, 2]).abs()
+    rel = (err / ref[:, 2].abs().clamp_min(1.0)).max().item()
+    if rel > 1e-4:
+        raise AssertionError(f"K1 at {bins} bins: error sums differ from the plain version by {rel:.3e} relative")
+    ms = cuda_ms(lambda: klov.lovasz_hist(probas, labels, bins, 255), 20)
+    plain_ms = cuda_ms(lambda: klov.lovasz_hist_plain(probas, labels, bins, 255), 5, 1)
+    bound, by = bound_ms(probas.numel() * 4 + labels.numel() * 4 + CLASSES * 3 * bins * 4)
+    print(f"kernel lovasz_hist bins {bins} ({groups} groups of {cg} classes): count/fg rows identical, "
+          f"error sums max |diff| {err.max().item():.3e} ({rel:.2e} relative); {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+
+
 def phase_lovasz_kernels() -> dict:
     probas, labels = _lovasz_case()
     p_bytes, l_bytes = probas.numel() * 4, labels.numel() * 4
@@ -263,6 +322,7 @@ def phase_lovasz_kernels() -> dict:
                                  f"max |diff| {(got - want).abs().max().item()}")
     print(f"kernel lovasz_hist (8, 19, {H * W}) bins {BINS}: count/fg rows identical, "
           f"error sums max |diff| {hist_err:.3e}; lovasz_bwd: identical (both table forms)")
+    _lovasz_hist_at(probas, labels, 1024)
     out = {}
     for name, fn, plain, nbytes in (
         ("lovasz_hist", lambda: klov.lovasz_hist(probas, labels, BINS, 255),
@@ -380,6 +440,72 @@ def phase_conv4_kernels() -> dict:
     return out
 
 
+def _conv3_case(i, c, co, h, w):
+    """bf16 NHWC input, the port's bf16 HWIO weights (CO padded to 8, a
+    view) and a folded BatchNorm, on the card."""
+    g = torch.Generator(device=DEV).manual_seed(4000 + i)
+    x = torch.randn((BATCH, h, w, c), generator=g, device=DEV).to(torch.bfloat16)
+    wt = torch.randn((3, 3, c, co), generator=g, device=DEV) * (2.0 / (9 * c)) ** 0.5
+    wt = torch.nn.functional.pad(wt, (0, -co % 8)).to(torch.bfloat16)[..., :co]
+    scale = torch.rand(co, generator=g, device=DEV) + 0.5
+    shift = torch.randn(co, generator=g, device=DEV) * 0.1
+    return x, wt, scale, shift
+
+
+def phase_conv3_kernels() -> dict:
+    """K4 at every distinct shape of the three serve paths; returns, for the
+    kernels line, the sums over one forward of each of BiSeNet-R18,
+    BiSeNet-R101 and DeepLabV2 (78 convs)."""
+    for model, n in K4_CONVS.items():
+        if sum(counts.get(model, 0) for *_, counts in CONV3_SHAPES) != n:
+            raise AssertionError(f"CONV3_SHAPES does not add up to {n} convs of {model}")
+    per_model = {m: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0} for m in K4_CONVS}
+    max_err = 0.0
+    by = {"bytes": 0.0, "operations": 0.0}
+    for i, (where, c, co, h, w, d, counts) in enumerate(CONV3_SHAPES):
+        x, wt, scale, shift = _conv3_case(i, c, co, h, w)
+        for epilogue, relu in (((), False), ((scale, shift), True)):
+            for out_dtype in (torch.bfloat16, torch.float32):
+                kw = dict(relu=relu, dilation=d, out_dtype=out_dtype)
+                got = k4.conv3x3(x, wt, *epilogue, **kw)
+                want = k4.conv3x3_plain(x, wt, *epilogue, **kw)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                if out_dtype == torch.bfloat16:
+                    ok = _within_bf16_ulp(got, want)
+                else:
+                    ok = err <= 1e-5 * want.abs().max().item()
+                if not ok or got.shape != want.shape or got.dtype != want.dtype:
+                    raise AssertionError(f"K4 {where} (epilogue {bool(epilogue)}, {out_dtype}) differs from "
+                                         f"its plain version: max |diff| {err}")
+                max_err = max(max_err, err)
+        del got, want
+        model_kw = dict(relu=True, dilation=d, out_dtype=torch.bfloat16)
+        ms = cuda_ms(lambda: k4.conv3x3(x, wt, scale, shift, **model_kw), 20)
+        plain_ms = cuda_ms(lambda: k4.conv3x3_plain(x, wt, scale, shift, **model_kw), 5, 1)
+        x_cl = x.permute(0, 3, 1, 2)  # NCHW view in channels_last memory
+        w_cl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        library_ms = cuda_ms(lambda: torch.nn.functional.conv2d(x_cl, w_cl, padding=d, dilation=d), 20)
+        ops = 2.0 * BATCH * h * w * co * 9 * c
+        # bf16 input, weights and output once, f32 scale and shift once
+        nbytes = 2 * BATCH * h * w * c + 2 * 9 * c * co + 8 * co + 2 * BATCH * h * w * co
+        bound, bound_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
+        print(f"kernel conv3x3 {where} {c}->{co} @{h}x{w} d{d} b{BATCH}: {ms:.4f} ms "
+              f"({ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {plain_ms:.4f} ms, cuDNN bf16 channels_last "
+              f"conv alone {library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}, {ops / 1e9:.1f} GFLOP), "
+              f"per forward {counts}")
+        for model, n in counts.items():
+            for key, t in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms), ("bound_ms", bound)):
+                per_model[model][key] += n * t
+            by[bound_by] += n * bound
+        del x, wt, x_cl, w_cl
+    for model, t in per_model.items():
+        print(f"kernel conv3x3 per {model} forward ({K4_CONVS[model]} convs): {t['ms']:.4f} ms kernel, "
+              f"{t['plain_ms']:.4f} ms plain, {t['library_ms']:.4f} ms cuDNN, {t['bound_ms']:.4f} ms bound")
+    total = {key: sum(t[key] for t in per_model.values()) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {**total, "max_abs_err": max_err, "bound_by": max(by, key=by.get)}
+
+
 def _frames(seed: int) -> torch.Tensor:
     rng = np.random.RandomState(seed)
     return torch.from_numpy(rng.randint(0, 256, (BATCH, H, W, 3), np.uint8)).to(DEV)
@@ -392,25 +518,126 @@ def _check_masks(masks, what):
         raise AssertionError(f"{what}: mask value {int(masks.max())} >= 19")
 
 
-def phase_slice() -> int:
+def _card_vs_cpu_f32_forward(what, cfg, cpu_vars, shape) -> None:
+    """The f32 forward on the card against the CPU's, on a small input (TF32
+    off): within 1e-3 * max |logit|, argmax agreement >= 0.999."""
     aug = AugmentConfig()
-    cfg = ModelConfig(compute_dtype="bfloat16")
-    variables = init_model(build_model(cfg, device="cpu"), torch.Generator().manual_seed(0))
-    variables = {k: v.to(DEV) for k, v in variables.items()}
-
-    # the f32 forward on the card against the CPU's, on a small input
-    small = np.random.RandomState(7).randint(0, 256, (2, 64, 128, 3), np.uint8)
-    f32 = ModelConfig(compute_dtype="float32")
-    cpu_vars = {k: v.cpu() for k, v in variables.items()}
-    lg_gpu = make_serving_fn(f32, aug, variables, "f32", device=DEV).logits(torch.from_numpy(small)).cpu()
-    lg_cpu = make_serving_fn(f32, aug, cpu_vars, "f32", device="cpu").logits(torch.from_numpy(small))
+    small = torch.from_numpy(np.random.RandomState(7).randint(0, 256, (*shape, 3), np.uint8))
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    card_vars = {k: v.to(DEV) for k, v in cpu_vars.items()}
+    lg_gpu = make_serving_fn(f32, aug, card_vars, "f32", device=DEV).logits(small).cpu()
+    lg_cpu = make_serving_fn(f32, aug, cpu_vars, "f32", device="cpu").logits(small)
     f32_err = (lg_gpu - lg_cpu).abs().max().item()
     scale = lg_cpu.abs().max().item()
     agree_small = (lg_gpu.argmax(1) == lg_cpu.argmax(1)).float().mean().item()
-    print(f"f32 forward, card vs CPU at 2x64x128: max |diff| {f32_err:.3e} (max |logit| {scale:.3e}), "
-          f"argmax agreement {agree_small:.6f}")
+    print(f"{what} f32 forward, card vs CPU at {'x'.join(map(str, shape))}: max |diff| {f32_err:.3e} "
+          f"(max |logit| {scale:.3e}), argmax agreement {agree_small:.6f}")
     if not f32_err <= 1e-3 * scale or agree_small < 0.999:
-        raise AssertionError("the f32 forward on the card disagrees with the CPU's")
+        raise AssertionError(f"{what}: the f32 forward on the card disagrees with the CPU's")
+
+
+@contextlib.contextmanager
+def _each_launch_checked(module, name):
+    """Run ``module.<name>`` and, on the same operands, its plain version;
+    every output must be within one bf16 ulp + 1e-5 * max |ref| of the
+    plain version's. Yields the list of the launches' max |diff|."""
+    kernel, plain = getattr(module, name), getattr(module, name + "_plain")
+    errs = []
+
+    def checked(*args, **kw):
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw)
+        if got.dtype != want.dtype or got.shape != want.shape or not _within_bf16_ulp(got, want):
+            raise AssertionError(f"{name} launch {len(errs)} ({tuple(got.shape)}) differs from its plain version")
+        errs.append((got.float() - want.float()).abs().max().item())
+        return got
+
+    setattr(module, name, checked)
+    try:
+        yield errs
+    finally:
+        setattr(module, name, kernel)
+
+
+def _mask_agreement(masks, logits_ref, masks_ref) -> tuple:
+    """(share of pixels where ``masks`` equal ``masks_ref``, the same share
+    over the pixels whose reference top-2 logits lie more than 2 bf16 ulps
+    apart, that pixel share)."""
+    same = decided = n_decided = 0.0
+    for m, lg, ref in zip(masks, logits_ref, masks_ref):
+        top2 = lg.float().topk(2, dim=1).values
+        ulp = torch.ldexp(torch.ones_like(top2[:, 0]), torch.frexp(top2[:, 0].abs())[1] - 8)
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * ulp
+        eq = m == ref
+        same += eq.float().mean().item()
+        decided += (eq & sure).float().sum().item()
+        n_decided += sure.float().sum().item()
+    return same / len(masks), decided / max(n_decided, 1.0), n_decided / (len(masks) * masks[0].numel())
+
+
+def _k4_serving(what, cfg, variables, requests, convs: int) -> int:
+    """bf16 serving of one model with ``fused_conv3`` off (cuDNN) and on
+    (K4): valid masks and finite logits both ways, ``convs`` K4 launches per
+    request, every K4 launch of a request within one bf16 ulp (+ 1e-5 *
+    max |ref|) of its plain version on the same operands, and K4's masks
+    >= 0.995 equal to those with K4 swapped for its plain version at the
+    pixels whose plain top-2 logits lie more than 2 bf16 ulps apart. Not
+    0.999 of all pixels: the random models' bf16 logits tie or nearly tie
+    at up to 13% of the pixels, where a one-ulp difference in one conv,
+    which any kernel that sums in another order than its plain version
+    makes, flips the argmax (PERF.md, section 6). Times both paths in turns
+    (cuDNN, K4, K4, cuDNN). Returns the K4 launches of the requests."""
+    aug = AugmentConfig()
+    serve = make_serving_fn(cfg, aug, variables, "bf16", device=DEV)
+    serve_k4 = make_serving_fn(cfg, aug, variables, "bf16", device=DEV, fused_conv3=True)
+    masks = [serve(x) for x in requests]
+    # the main path: K4's launches during the fused requests only
+    k4.launches = 0
+    masks_k4 = [serve_k4(x) for x in requests]
+    torch.cuda.synchronize()
+    launches = k4.launches
+    print(f"{what} bf16 serving with fused_conv3: {launches} K4 launches over {REQUESTS} requests")
+    if launches != convs * REQUESTS:
+        raise AssertionError(f"{what}: expected {convs * REQUESTS} K4 launches, got {launches}")
+    for m in masks + masks_k4:
+        _check_masks(m, what)
+    for fn in (serve, serve_k4):
+        if not bool(torch.isfinite(fn.logits(requests[0])).all()):
+            raise AssertionError(f"{what}: non-finite logits")
+    with _each_launch_checked(k4, "conv3x3") as errs:
+        serve_k4(requests[0])
+    print(f"{what}: each of one request's {len(errs)} K4 launches within 1 bf16 ulp of its plain version "
+          f"on the same operands (max |diff| {max(errs):.3e})")
+    if len(errs) != convs:
+        raise AssertionError(f"{what}: checked {len(errs)} K4 launches, expected {convs}")
+    with plain_versions(CONV3_KERNELS):
+        logits_plain = [serve_k4.logits(x) for x in requests]
+    masks_plain = [lg.argmax(1).to(torch.uint8) for lg in logits_plain]
+    agree, agree_sure, sure = _mask_agreement(masks_k4, logits_plain, masks_plain)
+    agree_cudnn = float(np.mean([(a == b).float().mean().item() for a, b in zip(masks_k4, masks)]))
+    print(f"{what} K4 masks vs the plain-version K4 masks: agreement {agree:.6f}, {agree_sure:.6f} over "
+          f"the {sure:.4f} of pixels whose plain top-2 logits lie > 2 bf16 ulps apart; vs the cuDNN path "
+          f"(random weights, informational): {agree_cudnn:.6f}")
+    if agree_sure < 0.995:
+        raise AssertionError(f"{what}: the K4 path agrees with its plain version on only {agree_sure:.6f} "
+                             "of the decided pixels")
+    times = {"cuDNN": [], "K4": []}
+    for name in ("cuDNN", "K4", "K4", "cuDNN"):
+        fn = serve_k4 if name == "K4" else serve
+        times[name].append(cuda_ms(lambda: fn(requests[0]), 10))
+    for name, t in times.items():
+        ms = float(np.mean(t))
+        print(f"serve {what} bf16 b{BATCH} {H}x{W}, 3x3 convs on {name}: {ms:.3f} ms/request "
+              f"({' / '.join(f'{v:.3f}' for v in t)}), {BATCH * 1e3 / ms:.1f} img/s")
+    return launches
+
+
+def phase_slice() -> tuple:
+    aug = AugmentConfig()
+    cfg = ModelConfig(compute_dtype="bfloat16")
+    variables = init_model(build_model(cfg, device="cpu"), torch.Generator().manual_seed(0))
+    _card_vs_cpu_f32_forward("BiSeNet-R18", cfg, variables, (2, 64, 128))
+    variables = {k: v.to(DEV) for k, v in variables.items()}
 
     t0 = time.perf_counter()
     calib = [normalize_u8(_frames(s), aug) for s in (1, 2)]
@@ -455,7 +682,27 @@ def phase_slice() -> int:
     for what, serve in (("bf16", serve_bf16), ("int8", serve_int8)):
         ms = cuda_ms(lambda: serve(requests[0]), 10)
         print(f"serve {what} b{BATCH} {H}x{W}: {ms:.3f} ms/request, {BATCH * 1e3 / ms:.1f} img/s")
+    k4_launches = _k4_serving("BiSeNet-R18", cfg, variables, requests, K4_CONVS["r18"])
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, k4_launches
+
+
+def phase_r101() -> int:
+    """BiSeNet-R101 and DeepLabV2 served in bf16 on cuDNN and on K4; returns
+    the K4 launches of both."""
+    requests = [_frames(200 + r) for r in range(REQUESTS)]
+    launches = 0
+    for what, key, fields, small in (
+            ("BiSeNet-R101", "r101", dict(context_path="resnet101"), (2, 64, 128)),
+            ("DeepLabV2", "deeplabv2", dict(name="deeplabv2"), (1, 65, 129))):
+        cfg = ModelConfig(compute_dtype="bfloat16", **fields)
+        variables = init_model(build_model(cfg, device="cpu"), torch.Generator().manual_seed(0))
+        _card_vs_cpu_f32_forward(what, cfg, variables, small)
+        variables = {k: v.to(DEV) for k, v in variables.items()}
+        torch.cuda.reset_peak_memory_stats()
+        launches += _k4_serving(what, cfg, variables, requests, K4_CONVS[key])
+        print(f"{what}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del variables
     return launches
 
 
@@ -682,7 +929,9 @@ def main() -> None:
     k3_times = phase_kernels()
     lovasz_times = phase_lovasz_kernels()
     conv4_times = phase_conv4_kernels()
-    k3_launches = phase_slice()
+    conv3_times = phase_conv3_kernels()
+    k3_launches, k4_launches = phase_slice()
+    k4_launches += phase_r101()
     train_launches = phase_train()
     adversarial_launches = phase_adversarial()
     pkg = "rtda_semanticsegmentation_tpu_torch/csrc"
@@ -698,7 +947,10 @@ def main() -> None:
         "name": name, "route": "cuda", "source": f"{pkg}/conv4x4s2.cu",
         "replaces": f"{ref}/pallas_conv.py:{line}", "launches": adversarial_launches[name],
         **conv4_times[name],
-    } for name, line in (("conv4x4s2p1", 155), ("conv4x4s2p1_dw", 262), ("conv4x4s2p1_dx", 403))]
+    } for name, line in (("conv4x4s2p1", 155), ("conv4x4s2p1_dw", 262), ("conv4x4s2p1_dx", 403))] + [{
+        "name": "conv3x3", "route": "cuda", "source": f"{pkg}/conv3x3.cu",
+        "replaces": f"{ref}/pallas_conv3.py:120", "launches": k4_launches, **conv3_times,
+    }]
     print(f"chip_smoke.py: all phases passed in {time.perf_counter() - t0:.1f} s, the build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

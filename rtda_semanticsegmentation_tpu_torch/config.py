@@ -17,8 +17,8 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class ModelConfig:
-    name: str = "bisenet"  # bisenet (deeplabv2 not ported yet)
-    context_path: str = "resnet18"  # resnet18 (resnet101 not ported yet)
+    name: str = "bisenet"  # bisenet | deeplabv2
+    context_path: str = "resnet18"  # resnet18 | resnet101 (BiSeNet's)
     num_classes: int = 19
     compute_dtype: str = "bfloat16"
     # int8 PTQ serving: convs with >= quant_min_ch input channels whose flax
@@ -151,8 +151,9 @@ class ExperimentConfig:
 
 
 def get_preset(name: str) -> ExperimentConfig:
-    """The JAX package's BiSeNet presets; ``deeplabv2_cityscapes`` is not
-    ported yet."""
+    """The JAX package's presets (``BASELINE.json['configs']``). The port
+    serves DeepLabV2 but does not train it yet, so ``deeplabv2_cityscapes``
+    builds a config that ``build_model(..., train=True)`` refuses."""
     base = ExperimentConfig()
     if name == "bisenet_source_small":
         return base.replace(
@@ -174,5 +175,10 @@ def get_preset(name: str) -> ExperimentConfig:
             augment=dataclasses.replace(base.augment, pipeline="all_four_combined"),
         )
     if name == "deeplabv2_cityscapes":
-        raise NotImplementedError(f"preset {name!r} is not ported to the PyTorch package yet")
+        return base.replace(
+            model=dataclasses.replace(base.model, name="deeplabv2"),
+            data=dataclasses.replace(base.data, train_dataset="cityscapes"),
+            optimizer=dataclasses.replace(base.optimizer, name="sgd", learning_rate=2.5e-4),
+            augment=dataclasses.replace(base.augment, pipeline="no_new_aug"),
+        )
     raise ValueError(f"Unknown preset {name!r}")

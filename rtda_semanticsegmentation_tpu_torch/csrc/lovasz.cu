@@ -25,7 +25,10 @@
 //   write their histograms to a workspace and a second, small kernel sums
 //   them in a fixed order: no global atomics. Counts are u32, so they are
 //   exact; the error sums are f32 and their order depends on the order of the
-//   shared-memory atomics;
+//   shared-memory atomics. Where the whole histogram does not fit a block's
+//   shared memory (C = 19 at 1024 bins needs 233,472 B), a second grid
+//   dimension splits the classes into groups of cg, and each block bins one
+//   group; at 256 bins there is one group;
 // - contention: at initialisation p ~ 1/C puts nearly every background pixel
 //   of a class into one bucket, so a warp's 32 lanes would hit one shared
 //   address. A warp whose valid lanes fall in at most kAggMax distinct
@@ -64,11 +67,15 @@ __device__ __forceinline__ float error(bool fg, float p) {
   return fabsf(__fsub_rn(fg ? 1.0f : 0.0f, p));
 }
 
+// Block (x, y) bins the classes c0 = y * cg .. c0 + cn - 1 of its share of
+// the pixels into partial[y][x] (3, cg, bins).
 __global__ void __launch_bounds__(kThreads, 3)
 lovasz_hist_kernel(const float* __restrict__ probas, const int* __restrict__ labels,
-                   unsigned* __restrict__ partial, int B, int C, int N, int bins, int ignore) {
-  extern __shared__ unsigned smem[];  // [3][C][bins]: count, fg (u32), bf16 error sum (f32 bits)
-  const int size = C * bins;
+                   unsigned* __restrict__ partial, int B, int C, int N, int bins, int ignore, int cg) {
+  extern __shared__ unsigned smem[];  // [3][cg][bins]: count, fg (u32), bf16 error sum (f32 bits)
+  const int c0 = blockIdx.y * cg;
+  const int cn = min(cg, C - c0);
+  const int size = cg * bins;
   unsigned* s_cnt = smem;
   unsigned* s_fg = smem + size;
   float* s_err = reinterpret_cast<float*>(smem + 2 * size);
@@ -85,14 +92,14 @@ lovasz_hist_kernel(const float* __restrict__ probas, const int* __restrict__ lab
     const int n = in ? pix - b * N : 0;
     const int label = in ? labels[pix] : ignore;
     const bool valid = in && label != ignore;
-    const float* prow = probas + static_cast<size_t>(b) * C * N + n;
+    const float* prow = probas + (static_cast<size_t>(b) * C + c0) * N + n;
     float p[kMaxClasses];
 #pragma unroll
-    for (int c = 0; c < kMaxClasses; ++c) p[c] = (in && c < C) ? __ldg(prow + static_cast<size_t>(c) * N) : 0.0f;
+    for (int c = 0; c < kMaxClasses; ++c) p[c] = (in && c < cn) ? __ldg(prow + static_cast<size_t>(c) * N) : 0.0f;
 #pragma unroll
     for (int c = 0; c < kMaxClasses; ++c) {
-      if (c >= C) break;  // C is uniform: the whole warp leaves together
-      const bool fg = label == c;
+      if (c >= cn) break;  // cn is uniform: the whole warp leaves together
+      const bool fg = label == c0 + c;
       const float e = error(fg, p[c]);
       const int k = valid ? bucket(e, bins) : -1;
       const float ev = bf16_round(e);
@@ -124,27 +131,30 @@ lovasz_hist_kernel(const float* __restrict__ probas, const int* __restrict__ lab
     }
   }
   __syncthreads();
-  unsigned* out = partial + static_cast<size_t>(blockIdx.x) * 3 * size;
+  unsigned* out = partial + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * 3 * size;
   for (int i = threadIdx.x; i < 3 * size; i += blockDim.x) out[i] = smem[i];
 }
 
-// Sums the blocks' histograms in block order: partial (blocks, 3, C, bins) -> out (C, 3, bins)
+// Sums the blocks' histograms in block order:
+// partial (groups, blocks, 3, cg, bins) -> out (C, 3, bins)
 __global__ void lovasz_hist_reduce(const unsigned* __restrict__ partial, float* __restrict__ out,
-                                   int blocks, int C, int bins) {
-  const int size = C * bins;
+                                   int blocks, int C, int bins, int cg) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= 3 * size) return;
-  const int row = i / size;
-  const int c = (i - row * size) / bins;
-  const int k = i - row * size - c * bins;
+  if (i >= 3 * C * bins) return;
+  const int row = i / (C * bins);
+  const int c = (i - row * C * bins) / bins;
+  const int k = i - (row * C + c) * bins;
+  const int grp = c / cg;
+  const size_t slab = static_cast<size_t>(3) * cg * bins;
+  const unsigned* src = partial + grp * blocks * slab + (static_cast<size_t>(row) * cg + c - grp * cg) * bins + k;
   float* dst = out + (static_cast<size_t>(c) * 3 + row) * bins + k;
   if (row < 2) {
     unsigned long long s = 0;
-    for (int j = 0; j < blocks; ++j) s += partial[static_cast<size_t>(j) * 3 * size + i];
+    for (int j = 0; j < blocks; ++j) s += src[j * slab];
     *dst = static_cast<float>(s);
   } else {
     float s = 0.0f;
-    for (int j = 0; j < blocks; ++j) s += __uint_as_float(partial[static_cast<size_t>(j) * 3 * size + i]);
+    for (int j = 0; j < blocks; ++j) s += __uint_as_float(src[j * slab]);
     *dst = s;
   }
 }
@@ -185,23 +195,26 @@ lovasz_bwd_kernel(const float* __restrict__ probas, const int* __restrict__ labe
 
 }  // namespace
 
+// blocks: blocks per class group; cg: classes per group (C for one group).
+// partial holds groups * blocks * 3 * cg * bins u32.
 extern "C" int lovasz_hist_launch(const void* probas, const void* labels, void* partial, void* out,
-                                  int B, int C, int N, int bins, int ignore, int blocks, void* stream) {
-  if (C < 1 || C > kMaxClasses || blocks < 1) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(3) * C * bins * sizeof(unsigned);
+                                  int B, int C, int N, int bins, int ignore, int blocks, int cg, void* stream) {
+  if (C < 1 || C > kMaxClasses || blocks < 1 || cg < 1 || cg > C) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(3) * cg * bins * sizeof(unsigned);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(lovasz_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  lovasz_hist_kernel<<<blocks, kThreads, smem, s>>>(
+  const dim3 grid(blocks, (C + cg - 1) / cg);
+  lovasz_hist_kernel<<<grid, kThreads, smem, s>>>(
       static_cast<const float*>(probas), static_cast<const int*>(labels), static_cast<unsigned*>(partial),
-      B, C, N, bins, ignore);
+      B, C, N, bins, ignore, cg);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n_out = 3 * C * bins;
   lovasz_hist_reduce<<<(n_out + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const unsigned*>(partial), static_cast<float*>(out), blocks, C, bins);
+      static_cast<const unsigned*>(partial), static_cast<float*>(out), blocks, C, bins, cg);
   return cudaGetLastError();
 }
 

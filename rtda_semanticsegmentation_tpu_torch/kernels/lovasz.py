@@ -39,6 +39,8 @@ bwd_launches = 0
 _THREADS = 256
 _MAX_CLASSES = 32
 _MAX_SMEM = 232448  # bytes of dynamic shared memory an H100 block may use
+_SM_SMEM = 233472  # bytes of shared memory of one H100 SM, for all its blocks
+_BLOCK_RESERVED = 1024  # bytes the runtime keeps per block
 _lib = None
 
 
@@ -68,11 +70,14 @@ def _buckets(probas, labels, bins, ignore):
 def lovasz_hist_plain(probas, labels, bins: int, ignore: int) -> torch.Tensor:
     """K1 in plain PyTorch, on any device: one ``bincount`` over
     ``class * bins + bucket`` per row. Counts are exact; the error sums add
-    the bf16-rounded errors in f32, in the order bincount takes."""
+    the bf16-rounded errors in f64 and round once to f32. (An f32 bincount
+    on a card adds into one global sum per bucket; at 1024 bins and 4 M
+    pixels the bucket of the smallest errors holds a sum to which most of
+    its terms are below half an ulp, and it loses them.)"""
     _, c, _ = _check(probas, labels, bins)
     fg, e, k, valid = _buckets(probas, labels, bins, ignore)
     idx = (torch.arange(c, device=probas.device).view(1, c, 1) * bins + k)[valid]
-    e16 = e.to(torch.bfloat16).to(torch.float32)[valid]
+    e16 = e.to(torch.bfloat16).to(torch.float64)[valid]
     size = c * bins
     rows = (
         torch.bincount(idx, minlength=size),
@@ -121,6 +126,19 @@ def _grid(device, per_sm: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count * per_sm
 
 
+def class_groups(c: int, bins: int) -> tuple:
+    """(classes per group, groups, blocks of one group that fit on an SM):
+    K1 splits the classes into the fewest groups whose (3, cg, bins) u32
+    histogram fits one block's shared memory; at 256 bins (58 KB for 19
+    classes) that is one group, three blocks to an SM."""
+    groups = -(-3 * c * bins * 4 // _MAX_SMEM)
+    cg = -(-c // groups)
+    if 3 * cg * bins * 4 > _MAX_SMEM:
+        raise ValueError(f"a (1, 3, {bins}) histogram exceeds a block's shared memory")
+    per_sm = max(1, min(3, _SM_SMEM // (3 * cg * bins * 4 + _BLOCK_RESERVED)))
+    return cg, -(-c // cg), per_sm
+
+
 def lovasz_hist(probas, labels, bins: int, ignore: int) -> torch.Tensor:
     """(B, C, N) f32 probabilities, (B, N) int32 labels -> (C, 3, bins) f32
     [count, fg count, sum of bf16(error)] per class and error bucket."""
@@ -130,17 +148,16 @@ def lovasz_hist(probas, labels, bins: int, ignore: int) -> torch.Tensor:
         raise ValueError(f"lovasz_hist runs on CPU or CUDA tensors, got {probas.device}")
     b, c, n = _check(probas, labels, bins)
     _cuda_operands(probas, labels)
-    if 3 * c * bins * 4 > _MAX_SMEM:
-        raise ValueError(f"a ({c}, 3, {bins}) histogram exceeds a block's shared memory")
-    # one wave: the 58 KB per-block histogram fits three blocks on an SM
-    blocks = max(1, min(_grid(probas.device, 3), -(-b * n // _THREADS)))
-    partial = torch.empty((blocks, 3, c, bins), device=probas.device, dtype=torch.int32)
+    cg, groups, per_sm = class_groups(c, bins)
+    # one wave over all the class groups
+    blocks = max(1, min(_grid(probas.device, per_sm) // groups, -(-b * n // _THREADS)))
+    partial = torch.empty((groups, blocks, 3, cg, bins), device=probas.device, dtype=torch.int32)
     out = torch.empty((c, 3, bins), device=probas.device, dtype=torch.float32)
     lib = _library()
     with torch.cuda.device(probas.device):
         err = lib.lovasz_hist_launch(
             probas.data_ptr(), labels.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            b, c, n, bins, ignore, blocks, torch.cuda.current_stream().cuda_stream,
+            b, c, n, bins, ignore, blocks, cg, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"lovasz_hist launch failed: CUDA error {err}")
@@ -181,7 +198,7 @@ def _library():
         lib = load_library(SOURCE)
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.lovasz_hist_launch.argtypes = [p, p, p, p] + [i] * 6 + [p]
+        lib.lovasz_hist_launch.argtypes = [p, p, p, p] + [i] * 7 + [p]
         lib.lovasz_hist_launch.restype = i
         lib.lovasz_bwd_launch.argtypes = [p, p, p, p] + [i] * 7 + [p]
         lib.lovasz_bwd_launch.restype = i

@@ -1,12 +1,14 @@
 """BiSeNet (port of the JAX ``models/bisenet.py``).
 
-Spatial path (3x stride-2 ConvBN, 3->64->128->256 at 1/8), ResNet-18
-context path, two attention refinement modules, the feature fusion module
+Spatial path (3x stride-2 ConvBN, 3->64->128->256 at 1/8), ResNet-18 or
+ResNet-101 context path, two attention refinement modules (as wide as the
+context features: 256/512 or 1024/2048), the feature fusion module
 and the 1x1 ``final_conv``, which runs at 1/8 before the x8 bilinear
 upsample (a 1x1 conv and a bilinear resize commute exactly). The aux
 supervision heads (``supervision1``/``supervision2``, 1x1 convs on the two
 refined context features) exist only in a model built for training, as in
-the JAX train tree.
+the JAX train tree. ``fused_conv3`` runs the context path's 3x3 / stride-1
+ConvBNs and the FFM's ``convblock`` on K4 (``models/layers.py::ConvBN``).
 """
 
 from __future__ import annotations
@@ -48,11 +50,12 @@ class AttentionRefinementModule(nn.Module):
 class FeatureFusionModule(nn.Module):
     """Fuse spatial + context features with an SE-style residual gate."""
 
-    def __init__(self, in_ch, num_classes, *, dtype=torch.float32, quant=QuantPolicy(), path="ffm"):
+    def __init__(self, in_ch, num_classes, *, dtype=torch.float32, quant=QuantPolicy(), path="ffm",
+                 fused_conv3=False):
         super().__init__()
         self.dtype = dtype
         self.convblock = ConvBN(in_ch, num_classes, 3, 1, 1, dtype=dtype, quant=quant,
-                                path=f"{path}/convblock")
+                                path=f"{path}/convblock", fused_conv3=fused_conv3)
         self.conv1 = Conv(num_classes, num_classes, 1, dtype=dtype)
         self.conv2 = Conv(num_classes, num_classes, 1, dtype=dtype)
 
@@ -68,21 +71,23 @@ class BiSeNet(nn.Module):
     mode, ``(logits, sup1, sup2)`` in train mode (``self.training``)."""
 
     def __init__(self, num_classes=19, context_path="resnet18", *, dtype=torch.float32,
-                 quant=QuantPolicy(), aux_heads=False):
+                 quant=QuantPolicy(), aux_heads=False, fused_conv3=False):
         super().__init__()
-        if context_path != "resnet18":
-            raise NotImplementedError(
-                f"context path {context_path!r} is not ported yet (only resnet18)"
-            )
+        depths = {"resnet18": 18, "resnet101": 101}
+        if context_path not in depths:
+            raise ValueError(f"unknown context path {context_path!r}; options: resnet18, resnet101")
         self.spatial_path = SpatialPath(dtype=dtype, quant=quant)
-        self.context_path = ContextPath(18, dtype=dtype, quant=quant)
-        self.arm1 = AttentionRefinementModule(256, dtype=dtype)
-        self.arm2 = AttentionRefinementModule(512, dtype=dtype)
-        self.ffm = FeatureFusionModule(256 + 256 + 512, num_classes, dtype=dtype, quant=quant)
+        self.context_path = ContextPath(depths[context_path], dtype=dtype, quant=quant,
+                                        fused_conv3=fused_conv3)
+        c3, c4 = self.context_path.resnet.channels
+        self.arm1 = AttentionRefinementModule(c3, dtype=dtype)
+        self.arm2 = AttentionRefinementModule(c4, dtype=dtype)
+        self.ffm = FeatureFusionModule(256 + c3 + c4, num_classes, dtype=dtype, quant=quant,
+                                       fused_conv3=fused_conv3)
         self.final_conv = Conv(num_classes, num_classes, 1, dtype=dtype)
         if aux_heads:  # registered last: a seed draws the same weights as for eval
-            self.supervision1 = Conv(256, num_classes, 1, dtype=dtype)
-            self.supervision2 = Conv(512, num_classes, 1, dtype=dtype)
+            self.supervision1 = Conv(c3, num_classes, 1, dtype=dtype)
+            self.supervision2 = Conv(c4, num_classes, 1, dtype=dtype)
 
     def forward(self, x, upsample: bool = True, aux: bool = True):
         """``upsample=False`` (eval only) returns the 1/8 logits. In train

@@ -1,9 +1,9 @@
 """Model construction, seeded initialization and weight loading.
 
-Port of the JAX ``models/factory.py`` for BiSeNet with the ResNet-18
-context path and for the FC-Discriminator. A model's "variables" in the
-port are its ``state_dict``; ``models/convert.py`` maps them to and from the
-JAX package's flat keys.
+Port of the JAX ``models/factory.py``: BiSeNet (ResNet-18 or ResNet-101
+context path), DeepLabV2 and the FC-Discriminator. A model's "variables" in
+the port are its ``state_dict``; ``models/convert.py`` maps them to and from
+the JAX package's flat keys.
 """
 
 from __future__ import annotations
@@ -16,45 +16,67 @@ import torch
 from ..config import ModelConfig
 from .bisenet import BiSeNet
 from .convert import QUANT_FROZEN, QUANT_STATS
+from .deeplabv2 import DeepLabV2
 from .discriminator import FCDiscriminator
 from .layers import Conv, QuantPolicy
 
 
-def build_model(cfg: ModelConfig, device="cuda", train: bool = False) -> BiSeNet:
+def build_model(cfg: ModelConfig, device="cuda", train: bool = False,
+                fused_conv3: bool = False) -> torch.nn.Module:
     """The generator named by ``cfg.name``, with uninitialized parameters,
     on ``device``.
 
     ``cfg.quant``: ``none``, ``calib`` or ``int8_frozen`` (set by
     ``models/quantize.py``). ``train`` builds the train tree (with the aux
     supervision heads) in train mode; otherwise the eval tree in eval
-    mode."""
-    if cfg.name != "bisenet":
-        raise NotImplementedError(f"model {cfg.name!r} is not ported yet (only bisenet)")
+    mode. ``fused_conv3`` (bf16 eval, ``quant='none'``) runs the 3x3 /
+    stride-1 ConvBNs on K4; it is an argument and not a ``ModelConfig``
+    field, as ``fused_conv1`` is one of :func:`build_discriminator`, because
+    the JAX package has no such field. Load weights with
+    :func:`load_variables`, then fold them into K4's operands with
+    ``layers.fold_fused_conv3``."""
+    if cfg.name not in ("bisenet", "deeplabv2"):
+        raise ValueError(f"unknown model {cfg.name!r}; options: bisenet, deeplabv2")
     if cfg.quant not in ("none", "calib", "int8_frozen"):
         raise NotImplementedError(
             f"quant mode {cfg.quant!r} is not ported (none, calib, int8_frozen)"
         )
+    what = "deeplabv2" if cfg.name == "deeplabv2" else f"bisenet/{cfg.context_path}"
+    r101 = cfg.name == "deeplabv2" or cfg.context_path == "resnet101"
+    if r101 and cfg.quant != "none":
+        raise NotImplementedError(f"int8 serving of {what} is not ported yet (only bisenet/resnet18)")
+    if r101 and train:
+        raise NotImplementedError(f"training {what} is not ported yet (only bisenet/resnet18)")
     quant = QuantPolicy(cfg.quant, cfg.quant_min_ch, cfg.quant_clip, tuple(cfg.quant_skip))
     if train and cfg.quant != "none":
         raise ValueError("training runs quant='none'")
-    model = BiSeNet(cfg.num_classes, cfg.context_path,
-                    dtype=getattr(torch, cfg.compute_dtype), quant=quant, aux_heads=train)
+    if train and fused_conv3:
+        raise ValueError("fused_conv3 is an eval path: K4 has no backward")
+    dtype = getattr(torch, cfg.compute_dtype)
+    if cfg.name == "deeplabv2":
+        model = DeepLabV2(cfg.num_classes, dtype=dtype, fused_conv3=fused_conv3)
+    else:
+        model = BiSeNet(cfg.num_classes, cfg.context_path, dtype=dtype, quant=quant,
+                        aux_heads=train, fused_conv3=fused_conv3)
     return model.to(device).train(train)
 
 
 @torch.no_grad()
 def init_model(model: torch.nn.Module, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-    """Fill every conv kernel with Kaiming-normal draws (fan mode per conv,
-    as the JAX initializers: fan-out in the ResNet, fan-in elsewhere) from
-    ``generator`` (a CPU generator, so a seed gives the same weights on any
-    device), conv biases with zeros; BatchNorm starts at identity. Returns
-    the model's variables (its ``state_dict``)."""
+    """Fill every conv kernel from ``generator`` (a CPU generator, so a seed
+    gives the same weights on any device) as the JAX initializers draw it:
+    Kaiming normal, fan-out in the ResNet and fan-in elsewhere, or N(0, std)
+    where the conv's ``init`` is a float (DeepLabV2's ASPP, 0.01); conv
+    biases with zeros; BatchNorm starts at identity. Returns the model's
+    variables (its ``state_dict``)."""
     for module in model.modules():
         if isinstance(module, Conv):
             o, i, kh, kw = module.weight.shape
-            fan = (i if module.init == "fan_in" else o) * kh * kw
-            w = torch.randn(module.weight.shape, generator=generator) * math.sqrt(2.0 / fan)
-            module.weight.copy_(w)
+            if isinstance(module.init, float):
+                std = module.init
+            else:
+                std = math.sqrt(2.0 / ((i if module.init == "fan_in" else o) * kh * kw))
+            module.weight.copy_(torch.randn(module.weight.shape, generator=generator) * std)
             if module.bias is not None:
                 module.bias.zero_()
     return model.state_dict()

@@ -11,6 +11,12 @@ Module and tensor names mirror the flax tree (``conv``, ``bn``, ``scale`` ->
 ``weight``, ``mean`` -> ``running_mean`` ...), see ``models/convert.py``.
 Parameters are created empty; ``models/factory.py::init_model`` fills them
 from an explicit generator.
+
+``fused_conv3`` (bf16 eval only) runs every 3x3 / stride-1 ConvBN with
+padding = dilation on the hand-written K4 (``kernels/conv3x3.py``), its
+BatchNorm folded into the kernel's scale / shift and its ReLU fused; the
+folded constants are non-persistent buffers that :func:`fold_fused_conv3`
+fills once the weights are loaded.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..kernels import conv3x3 as _k4
 from ..ops.quant import calib_clip_channels, int8_conv_unsigned
 
 
@@ -45,21 +52,23 @@ class QuantPolicy:
 class Conv(nn.Module):
     """``flax.linen.Conv`` counterpart: f32 params, compute in ``dtype``.
 
-    ``init`` names the Kaiming-normal fan mode the factory draws the
-    kernel with (``fan_in`` or ``fan_out``); biases start at zero."""
+    ``init`` says how the factory draws the kernel: ``fan_in`` or
+    ``fan_out`` (Kaiming normal with that fan mode), or a float, the
+    standard deviation of a zero-mean normal; biases start at zero."""
 
-    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, *, dilation=1,
                  bias=True, dtype=torch.float32, init="fan_in"):
         super().__init__()
         k = kernel_size
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, k, k))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
-        self.stride, self.padding, self.dtype, self.init = stride, padding, dtype, init
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.dtype, self.init = dtype, init
 
     def forward(self, x):
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding)
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding, self.dilation)
 
 
 class QuantConv(Conv):
@@ -169,29 +178,73 @@ class ConvBN(nn.Module):
 
     The conv is a :class:`QuantConv` when ``quant`` selects this conv by its
     flax path (``path``, e.g. ``context_path/resnet/layer3_0/conv1``) and
-    input width, as ``layers.py::ConvBN`` decides it."""
+    input width, as ``layers.py::ConvBN`` decides it.
+
+    With ``fused_conv3`` a 3x3 / stride-1 conv with padding = dilation runs
+    on K4 with the BatchNorm and ReLU in its epilogue (``self.fused``); any
+    other conv of the model stays on ``F.conv2d``. The option needs bf16
+    compute (K4 rounds its operands to bf16), no quantization, and eval
+    mode."""
 
     def __init__(self, in_ch, out_ch, kernel_size=3, stride=2, padding=1, *,
-                 use_relu=True, dtype=torch.float32, init="fan_in",
-                 quant: QuantPolicy = QuantPolicy(), path: str = ""):
+                 dilation=1, use_relu=True, dtype=torch.float32, init="fan_in",
+                 quant: QuantPolicy = QuantPolicy(), path: str = "", fused_conv3=False):
         super().__init__()
         self.use_relu, self.dtype = use_relu, dtype
+        if fused_conv3 and dtype != torch.bfloat16:
+            raise ValueError(f"fused_conv3 needs bf16 compute (K4 rounds its operands to bf16), got {dtype}")
+        if fused_conv3 and quant.mode != "none":
+            raise ValueError("fused_conv3 and int8 quantization exclude each other")
         if quant.applies(path, in_ch):
             self.conv = QuantConv(in_ch, out_ch, kernel_size, stride, padding,
                                   mode=quant.mode, relu=use_relu, dtype=dtype,
                                   init=init, clip=quant.clip)
         else:
-            self.conv = Conv(in_ch, out_ch, kernel_size, stride, padding,
+            self.conv = Conv(in_ch, out_ch, kernel_size, stride, padding, dilation=dilation,
                              bias=False, dtype=dtype, init=init)
         self.bn = FoldableBatchNorm(out_ch)
+        self.fused = fused_conv3 and kernel_size == 3 and stride == 1 and padding == dilation
+        if self.fused:
+            # K4's operands: bf16 HWIO weights with CO padded to a multiple
+            # of 8, and the folded BatchNorm (fold())
+            self.register_buffer("k4_weight", None, persistent=False)
+            self.register_buffer("k4_scale", None, persistent=False)
+            self.register_buffer("k4_shift", None, persistent=False)
+
+    @torch.no_grad()
+    def fold(self) -> None:
+        """Fill K4's operands from the current weights and BatchNorm."""
+        bn = self.bn
+        scale, shift = fold_batch_norm(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+        w = self.conv.weight.permute(2, 3, 1, 0)  # OIHW -> HWIO
+        self.k4_weight = F.pad(w, (0, -w.shape[3] % 8)).to(torch.bfloat16).contiguous()
+        self.k4_scale, self.k4_shift = scale.float().contiguous(), shift.float().contiguous()
 
     def forward(self, x):
+        if self.fused:
+            if self.training:
+                raise RuntimeError("fused_conv3 is an eval path: K4 has no backward")
+            if self.k4_weight is None:
+                raise RuntimeError("call layers.fold_fused_conv3(model) after loading the weights")
+            co = self.k4_scale.shape[0]
+            y = _k4.conv3x3(x.permute(0, 2, 3, 1), self.k4_weight[..., :co], self.k4_scale,
+                            self.k4_shift, relu=self.use_relu, dilation=self.conv.dilation,
+                            out_dtype=self.dtype)
+            return y.permute(0, 3, 1, 2)
         if getattr(self.conv, "mode", None) == "int8_frozen":
             return self.conv(x)  # BN and ReLU run in the kernel's epilogue
         x = self.bn(self.conv(x))
         if self.use_relu:
             x = F.relu(x)
         return x.to(self.dtype)
+
+
+def fold_fused_conv3(model: nn.Module) -> None:
+    """Fold the BatchNorm of every K4 ConvBN of ``model`` into its kernel
+    operands; call it once the weights are loaded (``serving.py`` does)."""
+    for m in model.modules():
+        if isinstance(m, ConvBN) and m.fused:
+            m.fold()
 
 
 def max_pool_torch(x, window: int, strides: int, padding: int, ceil_mode: bool = False):

@@ -6,14 +6,15 @@ PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerance: none, except the Lovász histogram's f32 error sums and the
-4x4/s2 conv kernels' f32 sums, which add in another order (stated at the
-tests); the kernels round like their plain versions.
+4x4/s2 and 3x3 conv kernels' f32 sums, which add in another order (stated
+at the tests); the kernels round like their plain versions.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from rtda_semanticsegmentation_tpu_torch.kernels import conv3x3 as k4
 from rtda_semanticsegmentation_tpu_torch.kernels import conv4x4 as kc
 from rtda_semanticsegmentation_tpu_torch.kernels import int8_conv as k3
 from rtda_semanticsegmentation_tpu_torch.kernels import lovasz as klov
@@ -100,18 +101,43 @@ def test_lovasz_bwd_kernel_matches_plain_version(interp, n, ignore_frac, ignore)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bins", [1024, 2048])
+def test_lovasz_hist_kernel_splits_classes_past_shared_memory(bins):
+    """19 classes at 1024 and 2048 bins overflow one block's shared memory,
+    so K1 bins groups of classes in separate blocks: still one launch,
+    counts exact, error sums within f32 reordering (rtol 1e-5, atol 1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert klov.class_groups(19, bins)[1] > 1
+    p, labels = _lovasz_case(bins, 6144, 0.1)
+    before = klov.hist_launches
+    got = klov.lovasz_hist(p, labels, bins, 255)
+    want = klov.lovasz_hist_plain(p, labels, bins, 255)
+    torch.cuda.synchronize()
+    assert klov.hist_launches == before + 1
+    assert torch.equal(got[:, :2], want[:, :2])
+    torch.testing.assert_close(got[:, 2], want[:, 2], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_binned_lovasz_launches_each_kernel_once_and_matches_the_cpu():
-    """One forward and backward of the loss on the card: one K1 and one K2
-    launch; loss and gradient equal the CPU's (rtol 1e-6: the error sums add
-    in another order; the tables, from exact counts, are the same)."""
+    """One forward and backward of the loss on the card, at 256 and 1024
+    bins: one K1 and one K2 launch; loss and gradient equal the CPU's (rtol
+    1e-6: the error sums add in another order; the tables, from exact
+    counts, are the same)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     p, labels = _lovasz_case(9, 64 * 96, 0.1)
+    for bins in (256, 1024):
+        _binned_lovasz_card_vs_cpu(p, labels, bins)
+
+
+def _binned_lovasz_card_vs_cpu(p, labels, bins):
     out = {}
     for dev in ("cuda", "cpu"):
         q = p.reshape(2, 19, 64, 96).to(dev).requires_grad_(True)
         before = (klov.hist_launches, klov.bwd_launches)
-        loss = lovasz_softmax_binned(q, labels.reshape(2, 64, 96).to(dev))
+        loss = lovasz_softmax_binned(q, labels.reshape(2, 64, 96).to(dev), bins=bins)
         loss.backward()
         torch.cuda.synchronize()
         launched = (klov.hist_launches - before[0], klov.bwd_launches - before[1])
@@ -200,3 +226,51 @@ def test_fused_conv4x4_launches_only_the_needed_kernels(x_grad, w_grad, no_tf32)
     assert (kc.fwd_launches, kc.dw_launches, kc.dx_launches) == (
         before[0] + 1, before[1] + int(w_grad), before[2] + int(x_grad))
     assert (x.grad is not None) == x_grad and (wt.grad is not None) == w_grad
+
+
+# (B, H, W, C, CO, dilation, x dtype): the serve paths' cases, narrowed (C and
+# CO multiples of 8: the 16-byte copy route), DeepLab's odd sizes and
+# dilations, the FFM's ragged CO = 19, more than one 64-channel N tile, and
+# the register route (f32 x, C not a multiple of 8, CO = 5)
+CONV3_SHAPES = [(2, 16, 32, 64, 64, 1, torch.bfloat16), (1, 17, 33, 128, 128, 1, torch.bfloat16),
+                (2, 9, 17, 64, 256, 2, torch.bfloat16), (1, 9, 17, 32, 64, 4, torch.bfloat16),
+                (2, 8, 16, 104, 19, 1, torch.bfloat16), (1, 7, 5, 24, 5, 1, torch.float32),
+                (1, 6, 10, 13, 19, 2, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,co,d,x_dtype", CONV3_SHAPES)
+def test_conv3x3_kernel_matches_plain_version(b, h, w, c, co, d, x_dtype, no_tf32):
+    """K4 with and without its epilogue, bf16 and f32 out, with the port's
+    bf16 weights padded to a multiple of 8 in CO and with plain f32 HWIO
+    weights: the 4x4/s2 kernels' tolerance (``_assert_conv4_close``)."""
+    g = torch.Generator(device="cuda").manual_seed(b * 100 + c + co + d)
+    x = torch.randn((b, h, w, c), generator=g, device="cuda").to(x_dtype)
+    wt = torch.randn((3, 3, c, co), generator=g, device="cuda") * (2.0 / (9 * c)) ** 0.5
+    scale = torch.rand(co, generator=g, device="cuda") + 0.5
+    shift = torch.randn(co, generator=g, device="cuda") * 0.1
+    padded = torch.nn.functional.pad(wt, (0, -co % 8)).to(torch.bfloat16)[..., :co]
+    before = k4.launches
+    calls = 0
+    for weights in (padded, wt):
+        for epilogue in ((), (scale, shift)):
+            for relu in (False, True):
+                for out_dtype in (torch.bfloat16, torch.float32):
+                    kw = dict(relu=relu, dilation=d, out_dtype=out_dtype)
+                    got = k4.conv3x3(x, weights, *epilogue, **kw)
+                    want = k4.conv3x3_plain(x, weights, *epilogue, **kw)
+                    calls += 1
+                    assert got.is_contiguous()
+                    _assert_conv4_close(got, want.contiguous(), out_dtype == torch.bfloat16)
+    torch.cuda.synchronize()
+    assert k4.launches == before + calls
+
+
+@pytest.mark.cuda
+def test_conv3x3_kernel_refuses_a_non_contiguous_input():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.zeros((1, 8, 4, 6), device="cuda", dtype=torch.bfloat16)  # NCHW, not channels_last
+    w = torch.zeros((3, 3, 8, 8), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.conv3x3(x.permute(0, 2, 3, 1), w)

@@ -158,7 +158,9 @@ PORT_ENTRY_MODULES = (
     "rtda_semanticsegmentation_tpu_torch.cli.predict",
     "rtda_semanticsegmentation_tpu_torch.kernels.lovasz",
     "rtda_semanticsegmentation_tpu_torch.kernels.conv4x4",
+    "rtda_semanticsegmentation_tpu_torch.kernels.conv3x3",
     "rtda_semanticsegmentation_tpu_torch.models.discriminator",
+    "rtda_semanticsegmentation_tpu_torch.models.deeplabv2",
     "rtda_semanticsegmentation_tpu_torch.ops.losses",
     "rtda_semanticsegmentation_tpu_torch.ops.augment",
     "rtda_semanticsegmentation_tpu_torch.train.steps",
@@ -169,10 +171,10 @@ PORT_ENTRY_MODULES = (
 
 
 def test_port_imports_no_jax():
-    """After each import of the port's modules and scripts, and after the
-    adversarial train step and its fused discriminator are built, no jax,
-    jaxlib, flax or optax module and nothing of the JAX package is
-    loaded."""
+    """After each import of the port's modules and scripts, after the
+    adversarial train step and its fused discriminator are built, and after
+    DeepLabV2 is built with its 3x3 convs on K4, no jax, jaxlib, flax or
+    optax module and nothing of the JAX package is loaded."""
     code = (
         "import importlib, sys\n"
         "def check(what):\n"
@@ -190,6 +192,10 @@ def test_port_imports_no_jax():
         "build_discriminator(cfg.model, device='cpu', fused_conv1=True)\n"
         "make_train_step(cfg, lambda t: 1e-4, lambda t: 2.5e-5)\n"
         "check('the adversarial step')\n"
+        "from rtda_semanticsegmentation_tpu_torch.config import ModelConfig\n"
+        "from rtda_semanticsegmentation_tpu_torch.models.factory import build_model\n"
+        "build_model(ModelConfig(name='deeplabv2'), device='cpu', fused_conv3=True)\n"
+        "check('DeepLabV2 with K4')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

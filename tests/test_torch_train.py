@@ -208,13 +208,14 @@ def test_aux_heads_decay_exemption(aux_weight):
 
 
 def test_unported_modes_raise():
-    """What the port has not ported yet raises: ``train.remat``, the
-    DeepLabV2 preset and its frozen-BatchNorm optimizer mask."""
+    """What the port has not ported yet raises: ``train.remat``, training
+    DeepLabV2 (its preset builds; its train model does not) and its
+    frozen-BatchNorm optimizer mask."""
     _, tcfg = _cfgs("vanilla")
     sched = poly_lr_schedule(1e-4, MAX_ITER)
     with pytest.raises(NotImplementedError, match="not ported"):
         make_train_step(tcfg.replace(train=tconfig.TrainConfig(remat=True)), sched)
     with pytest.raises(NotImplementedError, match="not ported"):
-        tconfig.get_preset("deeplabv2_cityscapes")
+        build_model(tconfig.get_preset("deeplabv2_cityscapes").model, device="cpu", train=True)
     with pytest.raises(NotImplementedError, match="not ported"):
         build_generator_tx(tcfg.optimizer, build_model(tcfg.model, device="cpu"), freeze_bn=True)
