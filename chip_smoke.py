@@ -11,7 +11,7 @@ failure:
 2. build: compiles ``csrc/int8_conv.cu``, ``csrc/lovasz.cu``,
    ``csrc/conv4x4s2.cu`` and ``csrc/conv3x3.cu`` for sm_90a into
    build/kernels/, one nvcc each, started together; prints the ptxas
-   reports;
+   reports and, per source, the registers and spill bytes;
 3. kernels: the s8 conv kernel (K3) against its plain PyTorch version at
    every quantized conv shape of BiSeNet-R18 at 512x1024, batch 8: bf16
    outputs and requantized s8 codes must be bit-identical; the Lovász
@@ -24,26 +24,33 @@ failure:
    against its plain version at every distinct shape of the three serve
    paths below, with and without its epilogue: f32 output within 1e-5 *
    max |ref|, bf16 output within one bf16 ulp + 1e-5 * max |ref| (f32 sums
-   in another order). Times each kernel, its plain version, its bound and,
-   for K4, cuDNN's bf16 ``channels_last`` conv alone;
+   in another order).
+   Times each kernel, its plain version, its bound and, for K4, cuDNN's
+   bf16 ``channels_last`` conv alone (K3, K4 and cuDNN's conv replayed from
+   a CUDA graph, the device time without the host's; K3 and K4 also
+   launched back to back, per shape and summed per forward, the way the
+   other kernels are timed); prints K3's TOP/s and K4's TFLOP/s, the share
+   of the bound and the host microseconds per launch per shape;
 4. serve: BiSeNet-R18 with seeded random weights, calibrated on 2 batches
    of 8 synthetic frames and frozen, serves 4 requests of 8 frames through
    ``make_serving_fn`` in bf16 and int8. Masks must be uint8 (8, 512, 1024)
    below 19, logits finite, each int8 request must launch K3 exactly 15
-   times, and the int8 masks must match those of the same model with the
-   kernel swapped for its plain version (>= 0.999 of pixels); the f32
-   forward on the card must match the CPU's on a small input. Then bf16
-   with ``fused_conv3``: 14 K4 launches per request, checked as in phase 5.
+   times with no operand copy (``int8_conv.copies``), and the int8 masks
+   must match those of the same model with the kernel swapped for its
+   plain version (>= 0.999 of pixels); the f32 forward on the card must
+   match the CPU's on a small input. Then bf16 with ``fused_conv3``: 14 K4
+   launches per request, checked as in phase 5.
    Prints img/s;
 5. R101: BiSeNet-R101 and DeepLabV2, seeded random weights, each checked
    first in f32 on the card against the CPU (2x64x128; DeepLabV2 1x65x129,
    within 1e-3 * max |logit|, argmax agreement >= 0.999), then serving 4
    requests of 8 frames at 512x1024 in bf16 with ``fused_conv3`` off and
    on: valid masks, finite logits, exactly 31 and 33 K4 launches per
-   request, every K4 launch of a request within one bf16 ulp of its plain
-   version on the same operands, masks >= 0.995 equal to those with K4
-   swapped for its plain version where the logits do not nearly tie
-   (``_k4_serving`` says why not 0.999 of all pixels).
+   request and no operand copy (``conv3x3.copies``), every K4 launch of a
+   request within one bf16 ulp of its plain version on the same operands,
+   masks >= 0.995 equal to those with K4 swapped for its plain version
+   where the logits do not nearly tie (``_k4_serving`` says why not 0.999
+   of all pixels).
    Prints img/s both ways and the agreement of K4's masks with cuDNN's;
 6. train: the ``bisenet_source_aug`` preset with the binned Lovász loss
    (BiSeNet-R18, bf16, Adam, ``all_four_combined`` augmentation, batch 8 at
@@ -81,6 +88,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import re
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -172,6 +180,25 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call of ``fn``, replayed from a CUDA
+    graph of ``iters`` calls: the kernel's time without the host's cost of
+    each launch, which exceeds it for the smaller convs (``host_us``)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -196,6 +223,21 @@ def phase_build() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {kbuild.nvcc_path()})")
     for source, info in kbuild.build_log.items():
         print(f"build log {source} ({info['seconds']:.2f} s):\n{info['log']}")
+        regs = sorted({int(m) for m in re.findall(r"Used (\d+) registers", info["log"])})
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill (?:stores|loads)", info["log"])]
+        print(f"ptxas {source}: registers per thread {regs}, spill bytes max {max(spills, default=0)}")
+
+
+def host_us(fn, n: int = 20) -> float:
+    """Host microseconds per call of ``fn``: the wrapper's checks, its
+    tensor-map encoding and the launch, with the card left to run behind."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
 
 
 def bound_ms(nbytes: float, ops: float = 0.0, peak: float = PEAK_INT8_OPS):
@@ -219,16 +261,18 @@ def _conv_case(i, cin, cout, h, w, k):
 
 
 def phase_kernels() -> dict:
-    total_ms = total_plain_ms = total_bound = 0.0
+    total_ms = total_stream_ms = total_plain_ms = total_bound = 0.0
     by_ops = by_bytes = 0.0
     max_err = 0.0
     for i, (where, cin, cout, h, w, k, s, p, count) in enumerate(SHAPES):
         xq, wq, a, b, inv = _conv_case(i, cin, cout, h, w, k)
-        kw = dict(stride=s, padding=p)
+        # the model's operands: the K-major weights made once (QuantConv.fold)
+        plain_kw = dict(stride=s, padding=p)
+        kw = dict(plain_kw, kmajor=k3.kmajor_weights(wq))
         out = k3.int8_conv(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **kw)
-        ref = k3.int8_conv_plain(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **kw)
+        ref = k3.int8_conv_plain(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **plain_kw)
         codes = k3.int8_conv(xq, wq, a, b, inv, relu=True, **kw)
-        codes_ref = k3.int8_conv_plain(xq, wq, a, b, inv, relu=True, **kw)
+        codes_ref = k3.int8_conv_plain(xq, wq, a, b, inv, relu=True, **plain_kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         code_err = (codes.int() - codes_ref.int()).abs().max().item()
@@ -238,9 +282,11 @@ def phase_kernels() -> dict:
                 f"(bf16 max |diff| {err}, s8 codes max |diff| {code_err})"
             )
         max_err = max(max_err, err, float(code_err))
-        ms = cuda_ms(lambda: k3.int8_conv(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **kw), 20)
+        ms = graph_ms(lambda: k3.int8_conv(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **kw))
+        stream_ms = cuda_ms(lambda: k3.int8_conv(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **kw), 20)
+        us = host_us(lambda: k3.int8_conv(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **kw))
         plain_ms = cuda_ms(
-            lambda: k3.int8_conv_plain(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **kw), 5, 1
+            lambda: k3.int8_conv_plain(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **plain_kw), 5, 1
         )
         ho, wo = out.shape[1], out.shape[2]
         ops = 2.0 * BATCH * ho * wo * cout * k * k * cin
@@ -249,15 +295,18 @@ def phase_kernels() -> dict:
         bound, by = bound_ms(nbytes, ops)
         tops = ops / (ms * 1e-3) / 1e12
         print(f"kernel {where} {cin}->{cout} @{h}x{w} b{BATCH}: bit-identical (bf16 and s8); "
-              f"kernel {ms:.4f} ms ({tops:.1f} TOP/s), plain {plain_ms:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}), x{count} per forward")
+              f"kernel {ms:.4f} ms ({tops:.1f} TOP/s, {bound / ms:.3f} of the bound; {stream_ms:.4f} ms launched "
+              f"back to back), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), host {us:.1f} us per launch, "
+              f"x{count} per forward")
         total_ms += count * ms
+        total_stream_ms += count * stream_ms
         total_plain_ms += count * plain_ms
         total_bound += count * bound
         by_ops += count * (bound if by == "operations" else 0.0)
         by_bytes += count * (bound if by == "bytes" else 0.0)
     print(f"kernel total over one forward's {QUANT_CONVS} quantized convs: "
-          f"{total_ms:.4f} ms kernel, {total_plain_ms:.4f} ms plain, {total_bound:.4f} ms bound")
+          f"{total_ms:.4f} ms kernel ({total_stream_ms:.4f} ms launched back to back), "
+          f"{total_plain_ms:.4f} ms plain, {total_bound:.4f} ms bound")
     # no PyTorch call computes an s8 convolution on CUDA: no library time
     return {"ms": total_ms, "plain_ms": total_plain_ms, "max_abs_err": max_err,
             "bound_ms": total_bound, "bound_by": "operations" if by_ops >= by_bytes else "bytes",
@@ -459,7 +508,8 @@ def phase_conv3_kernels() -> dict:
     for model, n in K4_CONVS.items():
         if sum(counts.get(model, 0) for *_, counts in CONV3_SHAPES) != n:
             raise AssertionError(f"CONV3_SHAPES does not add up to {n} convs of {model}")
-    per_model = {m: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0} for m in K4_CONVS}
+    per_model = {m: {"ms": 0.0, "stream_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+                 for m in K4_CONVS}
     max_err = 0.0
     by = {"bytes": 0.0, "operations": 0.0}
     for i, (where, c, co, h, w, d, counts) in enumerate(CONV3_SHAPES):
@@ -481,27 +531,32 @@ def phase_conv3_kernels() -> dict:
                 max_err = max(max_err, err)
         del got, want
         model_kw = dict(relu=True, dilation=d, out_dtype=torch.bfloat16)
-        ms = cuda_ms(lambda: k4.conv3x3(x, wt, scale, shift, **model_kw), 20)
+        ms = graph_ms(lambda: k4.conv3x3(x, wt, scale, shift, **model_kw))
+        stream_ms = cuda_ms(lambda: k4.conv3x3(x, wt, scale, shift, **model_kw), 20)
+        us = host_us(lambda: k4.conv3x3(x, wt, scale, shift, **model_kw))
         plain_ms = cuda_ms(lambda: k4.conv3x3_plain(x, wt, scale, shift, **model_kw), 5, 1)
         x_cl = x.permute(0, 3, 1, 2)  # NCHW view in channels_last memory
         w_cl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        library_ms = cuda_ms(lambda: torch.nn.functional.conv2d(x_cl, w_cl, padding=d, dilation=d), 20)
+        library_ms = graph_ms(lambda: torch.nn.functional.conv2d(x_cl, w_cl, padding=d, dilation=d))
         ops = 2.0 * BATCH * h * w * co * 9 * c
         # bf16 input, weights and output once, f32 scale and shift once
         nbytes = 2 * BATCH * h * w * c + 2 * 9 * c * co + 8 * co + 2 * BATCH * h * w * co
         bound, bound_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
         print(f"kernel conv3x3 {where} {c}->{co} @{h}x{w} d{d} b{BATCH}: {ms:.4f} ms "
-              f"({ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {plain_ms:.4f} ms, cuDNN bf16 channels_last "
-              f"conv alone {library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}, {ops / 1e9:.1f} GFLOP), "
-              f"per forward {counts}")
+              f"({ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {bound / ms:.3f} of the bound; {stream_ms:.4f} ms launched "
+              f"back to back), plain {plain_ms:.4f} ms, "
+              f"cuDNN bf16 channels_last conv alone {library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}, "
+              f"{ops / 1e9:.1f} GFLOP), host {us:.1f} us per launch, per forward {counts}")
         for model, n in counts.items():
-            for key, t in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms), ("bound_ms", bound)):
+            for key, t in (("ms", ms), ("stream_ms", stream_ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                           ("bound_ms", bound)):
                 per_model[model][key] += n * t
             by[bound_by] += n * bound
         del x, wt, x_cl, w_cl
     for model, t in per_model.items():
-        print(f"kernel conv3x3 per {model} forward ({K4_CONVS[model]} convs): {t['ms']:.4f} ms kernel, "
-              f"{t['plain_ms']:.4f} ms plain, {t['library_ms']:.4f} ms cuDNN, {t['bound_ms']:.4f} ms bound")
+        print(f"kernel conv3x3 per {model} forward ({K4_CONVS[model]} convs): {t['ms']:.4f} ms kernel "
+              f"({t['stream_ms']:.4f} ms launched back to back), {t['plain_ms']:.4f} ms plain, "
+              f"{t['library_ms']:.4f} ms cuDNN, {t['bound_ms']:.4f} ms bound")
     total = {key: sum(t[key] for t in per_model.values()) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return {**total, "max_abs_err": max_err, "bound_by": max(by, key=by.get)}
 
@@ -592,13 +647,16 @@ def _k4_serving(what, cfg, variables, requests, convs: int) -> int:
     serve_k4 = make_serving_fn(cfg, aug, variables, "bf16", device=DEV, fused_conv3=True)
     masks = [serve(x) for x in requests]
     # the main path: K4's launches during the fused requests only
-    k4.launches = 0
+    k4.launches = k4.copies = 0
     masks_k4 = [serve_k4(x) for x in requests]
     torch.cuda.synchronize()
     launches = k4.launches
-    print(f"{what} bf16 serving with fused_conv3: {launches} K4 launches over {REQUESTS} requests")
+    print(f"{what} bf16 serving with fused_conv3: {launches} K4 launches over {REQUESTS} requests, "
+          f"{k4.copies} operand copies")
     if launches != convs * REQUESTS:
         raise AssertionError(f"{what}: expected {convs * REQUESTS} K4 launches, got {launches}")
+    if k4.copies:
+        raise AssertionError(f"{what}: the model path made {k4.copies} K4 operand copies")
     for m in masks + masks_k4:
         _check_masks(m, what)
     for fn in (serve, serve_k4):
@@ -651,13 +709,15 @@ def phase_slice() -> tuple:
 
     masks_bf16 = [serve_bf16(x) for x in requests]
     # the main path: the kernel's launches during the int8 requests only
-    k3.launches = 0
+    k3.launches = k3.copies = 0
     masks_int8 = [serve_int8(x) for x in requests]
     torch.cuda.synchronize()
     launches = k3.launches
-    print(f"int8 serving: {launches} kernel launches over {REQUESTS} requests")
+    print(f"int8 serving: {launches} kernel launches over {REQUESTS} requests, {k3.copies} operand copies")
     if launches != QUANT_CONVS * REQUESTS:
         raise AssertionError(f"expected {QUANT_CONVS * REQUESTS} kernel launches, got {launches}")
+    if k3.copies:
+        raise AssertionError(f"the int8 model path made {k3.copies} K3 operand copies")
     for what, masks in (("bf16", masks_bf16), ("int8", masks_int8)):
         for m in masks:
             _check_masks(m, what)
@@ -665,9 +725,10 @@ def phase_slice() -> tuple:
         if not bool(torch.isfinite(lg).all()):
             raise AssertionError(f"{what}: non-finite logits")
 
-    # the same int8 model with the kernel swapped for its plain version
+    # the same int8 model with the kernel swapped for its plain version,
+    # which needs no K-major weights
     kernel = k3.int8_conv
-    k3.int8_conv = k3.int8_conv_plain
+    k3.int8_conv = lambda *args, kmajor=None, **kw: k3.int8_conv_plain(*args, **kw)
     try:
         masks_plain = [serve_int8(x) for x in requests]
     finally:

@@ -10,63 +10,155 @@
 //   y = max(y, 0)                     (when relu)
 // rounded once to bf16 or f32. Zero padding outside the image. The operands
 // are rounded to bf16 (RNE) as the TPU kernel rounds them (pallas_conv3.py:48,
-// 56); the products are exact and add in f32 on the tensor cores (mma.sync
-// m16n8k16 bf16 -> f32).
+// 56); the products are exact and add in f32 on the tensor cores.
 //
-// Layout: x (B, H, W, C) NHWC, bf16 or f32, contiguous; w (3, 3, C, CO) HWIO,
-// bf16 or f32, with unit stride in CO and a row stride ldw >= CO between its
-// (dy, dx, c) rows (the port keeps the weights bf16 with CO padded to a
-// multiple of 8); y (B, H, W, CO) NHWC, contiguous.
+// Layout: x (B, H, W, Cx) NHWC bf16, contiguous, 16-byte aligned, Cx a
+// multiple of 8 and >= C (channels past C are zero); w (3, 3, C, CO) HWIO
+// bf16 with unit stride in CO and a row stride ldw (a multiple of 8, >= CO)
+// between its (dy, dx, c) rows, 16-byte aligned; y (B, H, W, CO) NHWC. The
+// wrapper (kernels/conv3x3.py) makes bf16 copies of operands that are not so.
 //
-// What bounds it on an H100: operations, at the model's shapes. A 3x3 conv
-// does 2 * 9 * C multiply-adds per output for 2 C bytes of input read (bf16),
-// about 9 operations per input byte per output channel, so at CO >= 64 it is
-// above the card's bf16 ratio of ~295 only once the input is read a few times
-// at most; the layer1 convs (C = CO = 64 at 128x256) sit near the balance. The
-// design is an implicit GEMM with no im2col in device memory:
-// - M = output pixels (b, i, j) in NHWC order, N = CO, K = 9 taps x C. A block
-//   computes 128 pixels x 64 channels; eight warps, 4 x 2, each 32 x 32 (2 x 4
-//   m16n8 tiles);
-// - a k-step is one tap and 32 input channels. Its A tile (128 pixels x 32
-//   channels, the tap's shifted window, zero outside the image) and B tile (32
-//   x 64 weights) are copied into shared memory with 16-byte cp.async (zero
-//   fill for the border and the ragged K and N edges), three steps in flight;
-//   shapes that do not allow 16-byte copies (f32 x, C or ldw not a multiple of
-//   8) stage through registers instead;
-// - fragments are read with ldmatrix (A row-major, B transposed from its HWIO
-//   rows); row strides of 80 and 144 bytes put the 8 rows of each 8x8 matrix in
-//   distinct banks;
+// What bounds it on an H100: operations, at the model's shapes (2 * 9 * C
+// multiply-adds per output for 2 C bytes of input; every conv of the serve
+// paths is above the card's bf16 ratio of ~295 operations per byte), and in
+// practice the L2-to-SM traffic of the tap windows, which an implicit GEMM
+// reads 9 times. The design is an implicit GEMM (M = output pixels in NHWC
+// order, N = CO, K = 9 taps x C) on the wgmma tensor cores, fed by TMA
+// (hopper_conv.cuh):
+// - a tile is 128 pixels x N = 128 or 24 (the FFM's CO = 19) channels, or
+//   256 pixels x N = 64; each of two consumer warpgroups runs wgmma m64nNk16
+//   (bf16 -> f32) on one or two 64-row blocks of it. The launch is
+//   persistent: one block per SM walks the tiles (N fastest, so the blocks
+//   at work share their A tiles in L2), and one producer thread keeps a ring
+//   of up to 8 stages filled, running on into the next tile while the
+//   consumers write this one (R18's 1/32 maps give 128 tiles, on 128 of
+//   the 132 SMs);
+// - a stage is one filter tap and 64 channels, the 9 taps of a chunk of
+//   channels in a row, so that the chunk's shifted windows come from L2
+//   (with the taps outermost, the 3328-channel FFM read its 436 MB input
+//   from device memory once per tap). A is an im2col-mode TMA load of the
+//   tile's shifted window (the tap as the load's offsets, scaled by d; the
+//   hardware walks rows and images and zero-fills the border); B one or two
+//   tiled loads of the HWIO rows (64 channels x 64 CO each, 128-byte
+//   swizzle) or, at N = 24, three of 8 CO (unswizzled, 3 KB instead of a
+//   64-column box's 8), read by wgmma MN-major (transposed);
 // - the tensor cores round their running sum toward zero, so over K = 9 C
-//   terms (up to 29,952 in BiSeNet-R101's FFM) the error of one long mma chain
-//   grows with K, past 1e-5 of the largest output. Each chain therefore runs
-//   over 4 k-steps (128 products) only, and is added into an f32 total with
-//   round-to-nearest adds;
-// - the f32 epilogue (scale, shift, ReLU, one rounding) runs in registers and
+//   terms (up to 29,952 in BiSeNet-R101's FFM) one long chain drifts past
+//   1e-5 of the largest output. Each chain of kChainStages stages (16 k16
+//   steps) therefore starts from a zeroed accumulator (scale-d = 0) and is
+//   added into an f32 total with round-to-nearest adds. Chains of 4, 8 and
+//   16 k16 steps measured the same error at the serve paths' shapes (at
+//   most 6.3e-6 of the largest output, the 3328-channel FFM), so the
+//   longest is kept. Within a chain each stage's wgmmas stay in flight
+//   while the next stage's are issued;
+// - the epilogue (scale, shift, ReLU, one rounding) runs in registers and
 //   writes channel pairs.
-// The launch function enqueues on the given stream and returns
-// cudaGetLastError().
+// The launch function encodes the two tensor maps on the host (the driver's
+// encode functions through cudaGetDriverEntryPoint, no -lcuda), enqueues on
+// the given stream and returns cudaGetLastError() or an encode error.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper_conv.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace hconv;
 
-constexpr int kThreads = 256;
-constexpr int kBM = 128;                // output pixels of a block tile
-constexpr int kBN = 64;                 // output channels of a block tile
-constexpr int kBK = 32;                 // input channels of a k-step (one tap)
-constexpr int kStages = 3;              // k-steps in flight
-constexpr int kChain = 4;               // k-steps summed on the tensor cores before an f32 add
-constexpr int kARow = kBK + 8;          // bf16 per staged A row (80 B)
-constexpr int kBRow = kBN + 8;          // bf16 per staged B row (144 B)
-constexpr int kAStage = kBM * kARow;
-constexpr int kBStage = kBK * kBRow;
+template <int N>
+struct Wgmma;
 
-__device__ __forceinline__ bf16 to_bf16(bf16 v) { return v; }
-__device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16_rn(v); }
+template <>
+struct Wgmma<24> {
+  __device__ __forceinline__ static void mma(float (&d)[12], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11}, "
+        "%12, %13, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+// The tile of an N width: 256 pixels at N = 64 (two m64 blocks per consumer
+// warpgroup), which halves the weight traffic per output; 128 at N = 128
+// (the chain and the total take 128 registers) and at N = 24. A stage is 64
+// channels of one tap: the A tile, then B as one or two 64-column boxes of
+// 64 rows (128-byte swizzle) or, at N = 24, three 8-column boxes (1 KB each,
+// unswizzled 8 x 8 core matrices): 3 KB where a 64-column box would move 8.
+__host__ __device__ constexpr int m_blocks(int bn) { return bn == 64 ? 2 : 1; }
+__host__ __device__ constexpr int tile_m(int bn) { return 128 * m_blocks(bn); }
+__host__ __device__ constexpr int a_bytes(int bn) { return tile_m(bn) * kRow; }
+__host__ __device__ constexpr int b_bytes(int bn) { return bn == 24 ? 3 * 1024 : (bn == 128 ? 2 : 1) * 64 * kRow; }
+__host__ __device__ constexpr int stage_bytes(int bn) { return a_bytes(bn) + b_bytes(bn); }
+
+// Stages (of 4 k16 steps each) per accumulator chain.
+constexpr int kChainStages = 4;
+
+struct Params {
+  int H, W, CO, M;  // M = B * H * W output pixels
+  int iters;        // 9 taps x 64-channel chunks of C: the stages of a tile
+  int d, relu;
+  int ntn, tiles;   // N tiles; M tiles x N tiles
+};
 
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
@@ -75,246 +167,191 @@ __device__ __forceinline__ void store2(float* p, float a, float b) { *reinterpre
 __device__ __forceinline__ void store1(bf16* p, float a) { *p = __float2bfloat16_rn(a); }
 __device__ __forceinline__ void store1(float* p, float a) { *p = a; }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+template <int BN, typename Ty>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+               const float* __restrict__ scale, const float* __restrict__ shift, Ty* __restrict__ y, Params p) {
+  constexpr int MB = m_blocks(BN), BM = tile_m(BN);
+  extern __shared__ uint8_t smem[];
+  using R = Ring<stage_bytes(BN)>;
+  const R r(smem);
+  r.init();
+  Cursor<R::kStages> c;
+  const int wg = threadIdx.x / 128;
 
-// 16 bytes from global to shared memory; bytes = 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-struct Shape {
-  int B, H, W, C, CO, ldw, d;
-  int M;        // B * H * W output pixels
-  int ksteps;   // 9 * ceil(C / kBK)
-  int ntiles;   // ceil(CO / kBN)
-};
-
-// Block tile: pixels m0 .. m0+127, channels n0 .. n0+63, over all k-steps.
-// Staging roles: for A, thread t copies channels 8 (t & 3) .. +7 of rows
-// t >> 2 and (t >> 2) + 64; for B, channels 8 (t & 7) .. +7 of k-row t >> 3.
-template <typename Tx, typename Ty>
-__global__ void __launch_bounds__(kThreads, 2)
-conv3x3_kernel(const Tx* __restrict__ x, const void* __restrict__ wv, const float* __restrict__ scale,
-               const float* __restrict__ shift, Ty* __restrict__ y, Shape s, int w_bf16, int vec_a,
-               int vec_b, int relu) {
-  __shared__ __align__(16) bf16 As[kStages][kAStage];
-  __shared__ __align__(16) bf16 Bs[kStages][kBStage];
-
-  const int tid = threadIdx.x;
-  const int n0 = (blockIdx.x % s.ntiles) * kBN;
-  const int m0 = (blockIdx.x / s.ntiles) * kBM;
-  const int kc = (s.C + kBK - 1) / kBK;
-
-  // the two output pixels whose A rows this thread stages
-  const int ra = tid >> 2, ca = (tid & 3) * 8;
-  int pb[2], pi[2], pj[2];
-  bool pv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int m = m0 + ra + 64 * r;
-    pv[r] = m < s.M;
-    const int mm = pv[r] ? m : 0;
-    pb[r] = mm / (s.H * s.W);
-    const int rem = mm - pb[r] * s.H * s.W;
-    pi[r] = rem / s.W;
-    pj[r] = rem - pi[r] * s.W;
-  }
-  const int kb = tid >> 3, cb = (tid & 7) * 8;
-
-  auto load_step = [&](int step) {
-    const int slot = step % kStages;
-    const int tap = step / kc;
-    const int c0 = (step - tap * kc) * kBK;
-    const int oy = (tap / 3 - 1) * s.d, ox = (tap % 3 - 1) * s.d;
-    // A: the tap's window of 32 channels for 128 pixels
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int ii = pi[r] + oy, jj = pj[r] + ox;
-      const int c = c0 + ca;
-      const bool in = pv[r] && ii >= 0 && ii < s.H && jj >= 0 && jj < s.W;
-      bf16* dst = &As[slot][(ra + 64 * r) * kARow + ca];
-      const size_t off = ((static_cast<size_t>(pb[r]) * s.H + ii) * s.W + jj) * s.C + c;
-      if (vec_a) {
-        const bool ok = in && c < s.C;
-        cp_async16(dst, ok ? static_cast<const void*>(x + off) : static_cast<const void*>(x), ok ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          dst[e] = (in && c + e < s.C) ? to_bf16(x[off + e]) : __float2bfloat16_rn(0.0f);
-      }
-    }
-    // B: weights of input channels c0 .. c0+31 for output channels n0 .. n0+63
-    {
-      const int k = c0 + kb, co = n0 + cb;
-      bf16* dst = &Bs[slot][kb * kBRow + cb];
-      const size_t off = (static_cast<size_t>(tap) * s.C + k) * s.ldw + co;
-      const bool kin = k < s.C;
-      if (vec_b) {
-        const bool ok = kin && co < s.CO;
-        const bf16* w = static_cast<const bf16*>(wv);
-        cp_async16(dst, ok ? static_cast<const void*>(w + off) : wv, ok ? 16 : 0);
-      } else if (w_bf16) {
-        const bf16* w = static_cast<const bf16*>(wv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) dst[e] = (kin && co + e < s.CO) ? w[off + e] : __float2bfloat16_rn(0.0f);
-      } else {
-        const float* w = static_cast<const float*>(wv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          dst[e] = __float2bfloat16_rn((kin && co + e < s.CO) ? w[off + e] : 0.0f);
-      }
-    }
-  };
-
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 32;
-  float acc[2][4][4], sum[2][4][4];  // the current mma chain; the f32 total
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[a][b][q] = sum[a][b][q] = 0.0f;
-
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < s.ksteps) load_step(st);
-    cp_async_commit();
-  }
-  // ldmatrix row of this lane: rows (or k-rows) lane & 15, column half lane >> 4
-  const int lrow = lane & 15, lcol = (lane >> 4) * 8;
-  for (int step = 0; step < s.ksteps; ++step) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // step's tiles are in; every warp is done with step - 1's slot
-    if (step + kStages - 1 < s.ksteps) load_step(step + kStages - 1);
-    cp_async_commit();
-    const bf16* a_s = As[step % kStages];
-    const bf16* b_s = Bs[step % kStages];
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[2][4], bfr[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) ldsm_x4(af[mt], a_s + (wm + mt * 16 + lrow) * kARow + kk + lcol);
-#pragma unroll
-      for (int nh = 0; nh < 2; ++nh) ldsm_x4_trans(bfr[nh], b_s + (kk + lrow) * kBRow + wn + nh * 16 + lcol);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma(acc[mt][nt], af[mt], bfr[nt >> 1][(nt & 1) * 2], bfr[nt >> 1][(nt & 1) * 2 + 1]);
-    }
-    if (step % kChain == kChain - 1 || step == s.ksteps - 1) {
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            sum[a][b][q] = __fadd_rn(sum[a][b][q], acc[a][b][q]);
-            acc[a][b][q] = 0.0f;
+  if (wg == kConsumers) {
+    // producer warpgroup: one thread issues every load, running up to a
+    // ring ahead of the consumers, across tile boundaries
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      const int hw = p.H * p.W;
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        const int n0 = (tile % p.ntn) * BN, m0 = (tile / p.ntn) * BM;
+        const int b = m0 / hw, rem = m0 - b * hw;
+        const int i = rem / p.W, j = rem - i * p.W;
+        for (int it = 0; it < p.iters; ++it, c.next()) {
+          mbar_wait(r.empty_bar(c.s), c.phase ^ 1);
+          const uint32_t full = r.full_bar(c.s), a = r.stage(c.s);
+          mbar_expect_tx(full, stage_bytes(BN));
+          // chunk-major: the 9 taps of one 64-channel chunk in a row, so the
+          // tile's shifted windows hit L2 even where the input outgrows it
+          const int chunk = it / 9, tap = it - chunk * 9, c0 = chunk * 64;
+          tma_load_im2col(a, &xmap, full, c0, j - p.d, i - p.d, b, static_cast<uint16_t>((tap % 3) * p.d),
+                          static_cast<uint16_t>((tap / 3) * p.d));
+          if (BN == 24) {
+            for (int g = 0; g < 3; ++g) tma_load_3d(a + a_bytes(BN) + 1024 * g, &wmap, full, n0 + 8 * g, c0, tap);
+          } else {
+            tma_load_3d(a + a_bytes(BN), &wmap, full, n0, c0, tap);
+            if (BN == 128) tma_load_3d(a + a_bytes(BN) + 64 * kRow, &wmap, full, n0 + 64, c0, tap);
           }
-    }
-  }
-  cp_async_wait<0>();
-
-  // epilogue: sum q of tile (mt, nt) is pixel g + 8 (q >> 1), channel 2t + (q & 1)
-  const int g = lane >> 2, t = lane & 3;
-  const bool pair_ok = (s.CO & 1) == 0;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int co = n0 + wn + nt * 8 + 2 * t;
-    if (co >= s.CO) continue;
-    const bool two = co + 1 < s.CO;
-    float sc0 = 1.0f, sc1 = 1.0f, sh0 = 0.0f, sh1 = 0.0f;
-    if (scale != nullptr) {
-      sc0 = scale[co];
-      sh0 = shift[co];
-      if (two) {
-        sc1 = scale[co + 1];
-        sh1 = shift[co + 1];
+        }
       }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    const int row = wg * 64 * MB + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // of the tile, block mb = 0
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const int n0 = (tile % p.ntn) * BN, m0 = (tile / p.ntn) * BM;
+      float acc[MB][BN / 2], total[MB][BN / 2];  // the current chain; the f32 total
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
+      for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm + mt * 16 + g + 8 * h;
-        if (m >= s.M) continue;
-        float v0 = sum[mt][nt][2 * h], v1 = sum[mt][nt][2 * h + 1];
-        if (scale != nullptr) {
-          v0 = __fadd_rn(__fmul_rn(v0, sc0), sh0);
-          v1 = __fadd_rn(__fmul_rn(v1, sc1), sh1);
+        for (int q = 0; q < BN / 2; ++q) acc[mb][q] = total[mb][q] = 0.0f;
+      int held = -1;  // the stage whose wgmmas may still be running
+      for (int it = 0; it < p.iters; ++it, c.next()) {
+        mbar_wait(r.full_bar(c.s), c.phase);
+        const uint32_t a = r.stage(c.s) + wg * MB * 64 * kRow, bb = r.stage(c.s) + a_bytes(BN);
+        const bool fresh = it % kChainStages == 0;
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {  // k16 steps: 32 bytes along A's rows, 16 rows down B's
+          const uint64_t db = BN == 24 ? desc_sw(bb + 256 * k, 128, 1024, false)  // core matrices
+                                       : desc_sw(bb + 2048 * k, 64 * kRow, 1024);
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb)
+            Wgmma<BN>::mma(acc[mb], desc_sw(a + mb * 64 * kRow + 32 * k, 16, 1024), db, !(fresh && k == 0));
         }
-        if (relu) {
-          v0 = fmaxf(v0, 0.0f);
-          v1 = fmaxf(v1, 0.0f);
-        }
-        Ty* out = y + static_cast<size_t>(m) * s.CO + co;
-        if (two && pair_ok) {
-          store2(out, v0, v1);
+        wgmma_commit();
+        if ((it + 1) % kChainStages == 0 || it + 1 == p.iters) {
+          // the chain ends: wait for it, free both stages, add it to the total
+          wgmma_wait<0>();
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+            for (int q = 0; q < BN / 2; ++q) fence_reg(acc[mb][q]);
+          if (held >= 0) mbar_arrive(r.empty_bar(held));
+          mbar_arrive(r.empty_bar(c.s));
+          held = -1;
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+            for (int q = 0; q < BN / 2; ++q) total[mb][q] = __fadd_rn(total[mb][q], acc[mb][q]);
         } else {
-          store1(out, v0);
-          if (two) store1(out + 1, v1);
+          // keep this stage's wgmmas in flight; the previous stage's are done
+          wgmma_wait<1>();
+          if (held >= 0) mbar_arrive(r.empty_bar(held));
+          held = c.s;
+        }
+      }
+
+      // epilogue: total[mb][4 jn + q] is pixel row + 64 mb + 8 (q >> 1),
+      // channel 8 jn + 2 t + (q & 1)
+      const bool pair_ok = (p.CO & 1) == 0;
+#pragma unroll
+      for (int jn = 0; jn < BN / 8; ++jn) {
+        const int co = n0 + jn * 8 + 2 * t;
+        if (co >= p.CO) continue;
+        const bool two = co + 1 < p.CO;
+        float sc0 = 1.0f, sc1 = 1.0f, sh0 = 0.0f, sh1 = 0.0f;
+        if (scale != nullptr) {
+          sc0 = scale[co];
+          sh0 = shift[co];
+          if (two) {
+            sc1 = scale[co + 1];
+            sh1 = shift[co + 1];
+          }
+        }
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = m0 + row + 64 * mb + 8 * h;
+            if (m >= p.M) continue;
+            float v0 = total[mb][4 * jn + 2 * h], v1 = total[mb][4 * jn + 2 * h + 1];
+            if (scale != nullptr) {
+              v0 = __fadd_rn(__fmul_rn(v0, sc0), sh0);
+              v1 = __fadd_rn(__fmul_rn(v1, sc1), sh1);
+            }
+            if (p.relu) {
+              v0 = fmaxf(v0, 0.0f);
+              v1 = fmaxf(v1, 0.0f);
+            }
+            Ty* out = y + static_cast<size_t>(m) * p.CO + co;
+            if (two && pair_ok) {
+              store2(out, v0, v1);
+            } else {
+              store1(out, v0);
+              if (two) store1(out + 1, v1);
+            }
+          }
         }
       }
     }
   }
 }
 
-template <typename Tx, typename Ty>
-cudaError_t launch(const void* x, const void* w, const float* scale, const float* shift, void* y, const Shape& s,
-                   int w_bf16, int vec_a, int vec_b, int relu, cudaStream_t stream) {
-  const long long blocks = static_cast<long long>((s.M + kBM - 1) / kBM) * s.ntiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  conv3x3_kernel<Tx, Ty><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const Tx*>(x), w, scale, shift, static_cast<Ty*>(y), s, w_bf16, vec_a, vec_b, relu);
+template <int BN, typename Ty>
+int launch(const void* x, const void* w, const float* scale, const float* shift, void* y, int B, int H, int W,
+           int Cx, int C, int CO, int ldw, int d, int relu, cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  int err = encode_im2col(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, B, H, W, Cx, 3, 1, d, d, tile_m(BN));
+  if (err) return err;
+  // w as (CO, C, 9 taps), rows ldw apart; columns past CO and rows past C read zero
+  err = encode_tiled_3d(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, CO, C, 9, 2LL * ldw, 2LL * C * ldw, 64, 1,
+                        BN != 24);
+  if (err) return err;
+  const int M = B * H * W, kc = (C + 63) / 64;
+  const int ntn = (CO + BN - 1) / BN;
+  const long long tiles = static_cast<long long>((M + tile_m(BN) - 1) / tile_m(BN)) * ntn;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const Params p{H, W, CO, M, 9 * kc, d, relu, ntn, static_cast<int>(tiles)};
+  const int smem = smem_bytes(stage_bytes(BN));
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(conv3x3_kernel<BN, Ty>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  conv3x3_kernel<BN, Ty><<<persistent_blocks(tiles), kThreads, smem, stream>>>(xmap, wmap, scale, shift,
+                                                                              static_cast<Ty*>(y), p);
   return cudaGetLastError();
+}
+
+template <typename Ty>
+int launch_bn(int bn, const void* x, const void* w, const float* scale, const float* shift, void* y, int B, int H,
+              int W, int Cx, int C, int CO, int ldw, int d, int relu, cudaStream_t st) {
+  if (bn == 128) return launch<128, Ty>(x, w, scale, shift, y, B, H, W, Cx, C, CO, ldw, d, relu, st);
+  if (bn == 64) return launch<64, Ty>(x, w, scale, shift, y, B, H, W, Cx, C, CO, ldw, d, relu, st);
+  if (bn == 24) return launch<24, Ty>(x, w, scale, shift, y, B, H, W, Cx, C, CO, ldw, d, relu, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x_bf16 / w_bf16 / y_bf16: 1 for bf16, 0 for f32. scale and shift are both
-// given (f32, CO each) or both null.
+// x and w bf16 (see the layout above); y_bf16: 1 for a bf16 y, 0 for f32.
+// scale and shift are both given (f32, CO each) or both null. bn is the N
+// tile (128, 64 or 24).
 extern "C" int conv3x3_launch(const void* x, const void* w, const void* scale, const void* shift, void* y, int B,
-                              int H, int W, int C, int CO, int ldw, int dilation, int relu, int x_bf16, int w_bf16,
-                              int y_bf16, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || C < 1 || CO < 1 || ldw < CO || dilation < 1) return cudaErrorInvalidValue;
+                              int H, int W, int Cx, int C, int CO, int ldw, int dilation, int relu, int y_bf16,
+                              int bn, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || C < 1 || Cx < C || CO < 1 || ldw < CO) return cudaErrorInvalidValue;
+  if (dilation < 1 || dilation > 128) return cudaErrorInvalidValue;  // the im2col box corners are 8-bit
+  if (Cx % 8 != 0 || ldw % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return cudaErrorInvalidValue;  // TMA needs 16-byte aligned bases and row strides
   if ((scale == nullptr) != (shift == nullptr)) return cudaErrorInvalidValue;
-  const long long m = static_cast<long long>(B) * H * W;
-  if (m >= 0x7fffffffLL) return cudaErrorInvalidValue;
-  Shape s{B, H, W, C, CO, ldw, dilation, static_cast<int>(m), 9 * ((C + kBK - 1) / kBK), (CO + kBN - 1) / kBN};
-  const int vec_a = x_bf16 && C % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const int vec_b = w_bf16 && ldw % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (static_cast<long long>(B) * H * W >= 0x7fffffffLL) return cudaErrorInvalidValue;
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16 && y_bf16) return launch<bf16, bf16>(x, w, sc, sh, y, s, w_bf16, vec_a, vec_b, relu, st);
-  if (x_bf16) return launch<bf16, float>(x, w, sc, sh, y, s, w_bf16, vec_a, vec_b, relu, st);
-  if (y_bf16) return launch<float, bf16>(x, w, sc, sh, y, s, w_bf16, vec_a, vec_b, relu, st);
-  return launch<float, float>(x, w, sc, sh, y, s, w_bf16, vec_a, vec_b, relu, st);
+  if (y_bf16) return launch_bn<bf16>(bn, x, w, sc, sh, y, B, H, W, Cx, C, CO, ldw, dilation, relu, st);
+  return launch_bn<float>(bn, x, w, sc, sh, y, B, H, W, Cx, C, CO, ldw, dilation, relu, st);
 }

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` at the repository
-root, under a name that carries a hash of the source, then loaded with
-``ctypes``. Nothing is compiled when a module is imported.
+root, under a name that carries a hash of the source and of the shared
+``csrc/*.cuh`` headers, then loaded with ``ctypes``. Nothing is compiled
+when a module is imported.
 """
 
 from __future__ import annotations
@@ -23,8 +24,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# What the last build of each source printed (ptxas register and spill
-# report) and how long it took, for chip_smoke.py to show.
+# What the build of each loaded source printed (ptxas register and spill
+# report) and how long it took (0 when the library was already built; the
+# report is then read back from the log kept beside it), for chip_smoke.py
+# to show.
 build_log: dict = {}
 
 
@@ -42,9 +45,14 @@ def nvcc_path() -> str:
 def load_library(source: str) -> ctypes.CDLL:
     """Compile ``source`` (relative to the package) if needed and load it."""
     src = PACKAGE_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"{src.stem}-{digest}.so"
-    if not lib_path.exists():
+    log_path = lib_path.with_suffix(".log")
+    if lib_path.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        build_log[source] = {"seconds": 0.0, "log": log}
+    else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
@@ -54,9 +62,8 @@ def load_library(source: str) -> ctypes.CDLL:
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
+        log = (proc.stdout + proc.stderr).strip()
+        log_path.write_text(log)
         os.replace(tmp, lib_path)
-        build_log[source] = {
-            "seconds": time.perf_counter() - t0,
-            "log": (proc.stdout + proc.stderr).strip(),
-        }
+        build_log[source] = {"seconds": time.perf_counter() - t0, "log": log}
     return ctypes.CDLL(str(lib_path))

@@ -21,6 +21,12 @@ multiple of 8. On a CPU tensor it runs :func:`conv3x3_plain`; on a CUDA
 tensor it launches the kernel in ``csrc/conv3x3.cu`` (built on first use, see
 :mod:`.build`) or raises. The TPU tiling argument (``block_rows``) has no
 counterpart.
+
+The kernel reads its operands with TMA, which needs bf16 operands with
+16-byte aligned bases and row strides. :func:`launch_plan` decides, from the
+shapes and dtypes, the N tile and whether the wrapper first makes a bf16
+copy of ``x`` with C padded to a multiple of 8 (zeros) or of ``w`` with its
+rows padded to a multiple of 8; the model's operands need neither.
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ SOURCE = "csrc/conv3x3.cu"
 
 # Launches of the CUDA kernel in this process; the plain version never counts.
 launches = 0
+# Operand copies the wrapper made before a launch (launch_plan).
+copies = 0
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _lib = None
@@ -97,6 +105,26 @@ def _weight_row_stride(w: torch.Tensor) -> int:
     return ldw
 
 
+def launch_plan(c: int, co: int, ldw: int, x_dtype: torch.dtype, w_dtype: torch.dtype,
+                x_aligned: bool = True, w_aligned: bool = True) -> tuple:
+    """``(n_tile, copy_x, copy_w)`` of a launch: the N tile is 24 for CO <=
+    24 (the FFM's 19), 64 for CO <= 64, else 128; ``x`` is copied unless it
+    is bf16 with C a multiple of 8 on a 16-byte aligned base, ``w`` unless
+    it is bf16 with a row stride ``ldw`` a multiple of 8 on an aligned base."""
+    n_tile = 24 if co <= 24 else 64 if co <= 64 else 128
+    copy_x = x_dtype != torch.bfloat16 or c % 8 != 0 or not x_aligned
+    copy_w = w_dtype != torch.bfloat16 or ldw % 8 != 0 or not w_aligned
+    return n_tile, copy_x, copy_w
+
+
+def _padded_bf16(t: torch.Tensor, width: int) -> torch.Tensor:
+    """A fresh bf16 copy of ``t`` with its last dimension zero-padded to
+    ``width``."""
+    out = torch.zeros(t.shape[:-1] + (width,), device=t.device, dtype=torch.bfloat16)
+    out[..., : t.shape[-1]] = t
+    return out
+
+
 def conv3x3(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -126,6 +154,15 @@ def conv3x3(
     ldw = _weight_row_stride(w)
     bsz, h, wd, c = x.shape
     co = w.shape[3]
+    n_tile, copy_x, copy_w = launch_plan(c, co, ldw, x.dtype, w.dtype,
+                                         x.data_ptr() % 16 == 0, w.data_ptr() % 16 == 0)
+    global copies
+    if copy_x:
+        x = _padded_bf16(x, -(-c // 8) * 8)
+    if copy_w:
+        ldw = -(-co // 8) * 8
+        w = _padded_bf16(w, ldw)
+    copies += int(copy_x) + int(copy_w)
     out = torch.empty((bsz, h, wd, co), device=x.device, dtype=out_dtype)
     lib = _library()
     with torch.cuda.device(x.device):
@@ -133,8 +170,8 @@ def conv3x3(
             x.data_ptr(), w.data_ptr(),
             scale.data_ptr() if scale is not None else None,
             shift.data_ptr() if shift is not None else None,
-            out.data_ptr(), bsz, h, wd, c, co, ldw, dilation, int(relu),
-            int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            out.data_ptr(), bsz, h, wd, x.shape[3], c, co, ldw, dilation, int(relu),
+            int(out_dtype == torch.bfloat16), n_tile,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

@@ -14,6 +14,14 @@ weights. A ``channels_last`` NCHW tensor permuted to NHWC is already
 contiguous, so the model's permute costs nothing. On a CPU tensor it runs
 :func:`int8_conv_plain`; on a CUDA tensor it launches the kernel in
 ``csrc/int8_conv.cu`` (built on first use, see :mod:`.build`) or raises.
+
+The kernel's s8 tensor cores read the weights K-major only: it takes the
+(CO, KH*KW, C) copy and the column sums that :func:`kmajor_weights` makes,
+once per model (``QuantConv.fold``) or, from the HWIO ``wq``, for each call.
+Its TMA loads zero-fill the border, and the epilogue restores the -127 pad
+exactly (:func:`zero_code_border_correction`). TMA also needs C a multiple
+of 16 and a 16-byte aligned ``xq``; :func:`launch_plan` says when the wrapper
+first copies ``xq`` with channels of code 0 appended (zero weights face them).
 """
 
 from __future__ import annotations
@@ -30,6 +38,9 @@ SOURCE = "csrc/int8_conv.cu"
 
 # Launches of the CUDA kernel in this process; the plain version never counts.
 launches = 0
+# Operand copies the wrapper made before a launch: a padded xq (launch_plan)
+# or the K-major weights of a call that was not given them.
+copies = 0
 
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1}
 _S8 = 2
@@ -69,6 +80,42 @@ def pad_zero_code(xq: torch.Tensor, padding: int) -> torch.Tensor:
     if padding:
         xq = F.pad(xq, (0, 0, padding, padding, padding, padding), value=-127)
     return xq
+
+
+def kmajor_weights(wq: torch.Tensor) -> tuple:
+    """The kernel's weight operands from HWIO s8 ``wq`` (KH, KW, C, CO):
+    ``wk`` (CO, KH*KW, C16) s8, the weights K-major with C zero-padded to a
+    multiple of 16, and ``colsum`` (KH*KW, CO) s32, the column sums
+    ``S[tap, co] = sum_c wq[kh, kw, c, co]`` of the border correction."""
+    kh, kw, c, co = wq.shape
+    wk = torch.zeros((co, kh * kw, -(-c // 16) * 16), device=wq.device, dtype=torch.int8)
+    wk[..., :c] = wq.permute(3, 0, 1, 2).reshape(co, kh * kw, c)
+    colsum = wq.to(torch.int32).sum(dim=2, dtype=torch.int32).reshape(kh * kw, co)
+    return wk, colsum
+
+
+def zero_code_border_correction(colsum: torch.Tensor, h: int, w: int, kh: int, kw: int,
+                                stride: int, padding: int) -> torch.Tensor:
+    """What the -127 pad adds to the s32 accumulator of a zero-padded conv,
+    (HO, WO, CO) int64: ``-127 * sum of colsum[tap]`` over the taps whose
+    input pixel ``(oh*stride - padding + kh, ow*stride - padding + kw)`` lies
+    outside the h x w image. The kernel's epilogue adds the same sum."""
+    ho = (h + 2 * padding - kh) // stride + 1
+    wo = (w + 2 * padding - kw) // stride + 1
+    ih = torch.arange(ho).view(1, ho) * stride - padding + torch.arange(kh).view(kh, 1)  # (KH, HO)
+    iw = torch.arange(wo).view(1, wo) * stride - padding + torch.arange(kw).view(kw, 1)  # (KW, WO)
+    row_out = (ih < 0) | (ih >= h)
+    col_out = (iw < 0) | (iw >= w)
+    outside = row_out.view(kh, 1, ho, 1) | col_out.view(1, kw, 1, wo)  # (KH, KW, HO, WO)
+    sums = colsum.to(device="cpu", dtype=torch.int64).view(kh, kw, -1)
+    return -127 * torch.einsum("abhw,abc->hwc", outside.to(torch.int64), sums)
+
+
+def launch_plan(c: int, co: int, x_aligned: bool = True) -> tuple:
+    """``(n_tile, copy_x)`` of a launch: the N tile is 24 for CO <= 24 (the
+    FFM's 19), else 128; ``xq`` is copied unless C is a multiple of 16 and
+    its base 16-byte aligned."""
+    return (24 if co <= 24 else 128), c % 16 != 0 or not x_aligned
 
 
 def int8_conv_plain(
@@ -118,10 +165,12 @@ def int8_conv(
     padding: int,
     relu: bool,
     out_dtype: torch.dtype = torch.bfloat16,
+    kmajor: Optional[tuple] = None,
 ) -> torch.Tensor:
     """(B,H,W,C) s8 codes * (KH,KW,C,CO) s8 -> (B,HO,WO,CO) ``out_dtype``,
     or s8 codes on the next conv's unsigned grid when ``inv_out`` is given
-    (which requires ``relu``)."""
+    (which requires ``relu``). ``kmajor`` is :func:`kmajor_weights` of
+    ``wq``, made once by the caller; without it each call makes its own."""
     if xq.device.type == "cpu":
         return int8_conv_plain(
             xq, wq, a, b, inv_out,
@@ -136,12 +185,29 @@ def int8_conv(
             raise ValueError(f"all operands must be on {xq.device}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError("int8_conv needs contiguous NHWC / HWIO operands")
-    if xq.data_ptr() % 4:
-        raise ValueError("xq must be 4-byte aligned")
     bsz, h, w, c = xq.shape
     if bsz * ho * wo >= 2**31:
         raise ValueError("too many output pixels for the kernel's 32-bit pixel index")
     kh, kw, _, co = wq.shape
+    if kh != kw or kh * kw > 32 or stride > 8 or padding > 127 or padding - (kh - 1) < -128:
+        raise ValueError(f"int8_conv takes square kernels of up to 32 taps, stride <= 8 and padding <= 127, "
+                         f"got {kh}x{kw}, stride {stride}, padding {padding}")
+    c16 = -(-c // 16) * 16
+    n_tile, copy_x = launch_plan(c, co, xq.data_ptr() % 16 == 0)
+    global copies
+    if kmajor is None:
+        kmajor = kmajor_weights(wq)
+        copies += 1
+    wk, colsum = kmajor
+    if (tuple(wk.shape) != (co, kh * kw, c16) or wk.dtype != torch.int8 or tuple(colsum.shape) != (kh * kw, co)
+            or colsum.dtype != torch.int32 or not wk.is_contiguous() or not colsum.is_contiguous()
+            or wk.device != xq.device or colsum.device != xq.device or wk.data_ptr() % 16):
+        raise ValueError("kmajor must be kmajor_weights(wq) on the same device")
+    if copy_x:
+        padded = torch.zeros((bsz, h, w, c16), device=xq.device, dtype=torch.int8)
+        padded[..., :c] = xq
+        xq = padded
+        copies += 1
     kind = _S8 if inv_out is not None else _OUT_KIND[out_dtype]
     out = torch.empty(
         (bsz, ho, wo, co), device=xq.device,
@@ -151,9 +217,9 @@ def int8_conv(
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.int8_conv_launch(
-            xq.data_ptr(), wq.data_ptr(), a.data_ptr(), b.data_ptr(),
+            xq.data_ptr(), wk.data_ptr(), colsum.data_ptr(), a.data_ptr(), b.data_ptr(),
             inv_out.data_ptr() if inv_out is not None else None, out.data_ptr(),
-            bsz, h, w, c, ho, wo, co, kh, kw, stride, padding, int(relu), kind,
+            bsz, h, w, c16, ho, wo, co, kh, kw, stride, padding, int(relu), kind, n_tile,
             stream,
         )
     if err != 0:
@@ -169,7 +235,7 @@ def _library():
         lib = load_library(SOURCE)
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.int8_conv_launch.argtypes = [p, p, p, p, p, p] + [i] * 13 + [p]
+        lib.int8_conv_launch.argtypes = [p] * 7 + [i] * 14 + [p]
         lib.int8_conv_launch.restype = i
         _lib = lib
     return _lib

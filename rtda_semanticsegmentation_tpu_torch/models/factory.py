@@ -34,7 +34,7 @@ def build_model(cfg: ModelConfig, device="cuda", train: bool = False,
     field, as ``fused_conv1`` is one of :func:`build_discriminator`, because
     the JAX package has no such field. Load weights with
     :func:`load_variables`, then fold them into K4's operands with
-    ``layers.fold_fused_conv3``."""
+    ``layers.fold_kernel_operands``."""
     if cfg.name not in ("bisenet", "deeplabv2"):
         raise ValueError(f"unknown model {cfg.name!r}; options: bisenet, deeplabv2")
     if cfg.quant not in ("none", "calib", "int8_frozen"):

@@ -15,8 +15,10 @@ from an explicit generator.
 ``fused_conv3`` (bf16 eval only) runs every 3x3 / stride-1 ConvBN with
 padding = dilation on the hand-written K4 (``kernels/conv3x3.py``), its
 BatchNorm folded into the kernel's scale / shift and its ReLU fused; the
-folded constants are non-persistent buffers that :func:`fold_fused_conv3`
-fills once the weights are loaded.
+folded constants are non-persistent buffers that
+:func:`fold_kernel_operands` fills once the weights are loaded. It also
+fills each frozen ``QuantConv``'s copy of its weights in the layout K3
+reads (K-major, with their column sums).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels import conv3x3 as _k4
+from ..kernels.int8_conv import kmajor_weights
 from ..ops.quant import calib_clip_channels, int8_conv_unsigned
 
 
@@ -83,6 +86,10 @@ class QuantConv(Conv):
       following BatchNorm into the kernel's epilogue
       (``models/quantize.py::freeze``), and the epilogue also applies the
       ConvBN's ReLU, so the kernel's output is the whole ConvBN's.
+      ``k3_weight`` / ``k3_colsum`` (non-persistent, :meth:`fold`) are
+      ``wq`` in the layout K3 reads; without them each call makes its own.
+      A forward after ``wq`` was written or replaced since the fold raises
+      instead of serving the old weights.
     """
 
     def __init__(self, in_ch, out_ch, kernel_size, stride, padding, *,
@@ -102,6 +109,18 @@ class QuantConv(Conv):
             self.register_buffer("c", torch.zeros(out_ch))
             self.register_buffer("a", torch.ones(out_ch))
             self.register_buffer("b", torch.zeros(out_ch))
+            self.register_buffer("k3_weight", None, persistent=False)
+            self.register_buffer("k3_colsum", None, persistent=False)
+            self._k3_source = None  # wq's (storage, version) at the fold
+
+    def _wq_state(self):
+        return self.wq.data_ptr(), self.wq._version
+
+    @torch.no_grad()
+    def fold(self) -> None:
+        """Fill K3's weight operands from the loaded ``wq``."""
+        self.k3_weight, self.k3_colsum = kmajor_weights(self.wq)
+        self._k3_source = self._wq_state()
 
     @torch.no_grad()
     def _record(self, x_nhwc):
@@ -118,10 +137,13 @@ class QuantConv(Conv):
         if self.mode == "calib":
             self._record(x_nhwc)
             return super().forward(x)
+        if self.k3_weight is not None and self._wq_state() != self._k3_source:
+            raise RuntimeError("wq changed after layers.fold_kernel_operands(model); call it again")
         y = int8_conv_unsigned(
             x_nhwc, self.wq, self.a, self.b, self.in_absmax,
             stride=self.stride, padding=self.padding, relu=self.relu,
             out_dtype=self.dtype,
+            kmajor=None if self.k3_weight is None else (self.k3_weight, self.k3_colsum),
         )
         return y.permute(0, 3, 1, 2)
 
@@ -225,7 +247,7 @@ class ConvBN(nn.Module):
             if self.training:
                 raise RuntimeError("fused_conv3 is an eval path: K4 has no backward")
             if self.k4_weight is None:
-                raise RuntimeError("call layers.fold_fused_conv3(model) after loading the weights")
+                raise RuntimeError("call layers.fold_kernel_operands(model) after loading the weights")
             co = self.k4_scale.shape[0]
             y = _k4.conv3x3(x.permute(0, 2, 3, 1), self.k4_weight[..., :co], self.k4_scale,
                             self.k4_shift, relu=self.use_relu, dilation=self.conv.dilation,
@@ -239,11 +261,12 @@ class ConvBN(nn.Module):
         return x.to(self.dtype)
 
 
-def fold_fused_conv3(model: nn.Module) -> None:
+def fold_kernel_operands(model: nn.Module) -> None:
     """Fold the BatchNorm of every K4 ConvBN of ``model`` into its kernel
-    operands; call it once the weights are loaded (``serving.py`` does)."""
+    operands and lay out every frozen QuantConv's weights for K3; call it
+    once the weights are loaded (``serving.py`` does)."""
     for m in model.modules():
-        if isinstance(m, ConvBN) and m.fused:
+        if (isinstance(m, ConvBN) and m.fused) or (isinstance(m, QuantConv) and m.mode == "int8_frozen"):
             m.fold()
 
 

@@ -96,14 +96,16 @@ def int8_conv_unsigned(
     padding: int,
     relu: bool,
     out_dtype: torch.dtype,
+    kmajor=None,
 ) -> torch.Tensor:
     """Unsigned int8 conv of NHWC ``x``: quantize the input, then the s8
     conv kernel (zero-code pad) with the epilogue ``acc * a + b`` and an
     optional ReLU. The serving path's ``QuantConv`` passes constants with
-    the following BatchNorm folded in."""
+    the following BatchNorm folded in, and ``kmajor``, the kernel's weight
+    copy (``kernels/int8_conv.py::kmajor_weights``)."""
     xq = quantize_act_unsigned(x, in_absmax).contiguous()
     return _k3.int8_conv(xq, wq, a, b, stride=stride, padding=padding, relu=relu,
-                         out_dtype=out_dtype)
+                         out_dtype=out_dtype, kmajor=kmajor)
 
 
 def int8_conv_frozen(

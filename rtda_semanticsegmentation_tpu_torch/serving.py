@@ -8,7 +8,7 @@ import dataclasses
 import torch
 
 from .models.factory import build_model, load_variables
-from .models.layers import fold_fused_conv3
+from .models.layers import fold_kernel_operands
 from .models.quantize import freeze, quantized_model
 from .ops.augment import normalize_u8
 
@@ -46,7 +46,7 @@ def make_serving_fn(model_cfg, augment_cfg, variables, precision: str = "bf16", 
     else:
         raise ValueError(f"unknown precision {precision!r}")
     load_variables(model, variables)
-    fold_fused_conv3(model)
+    fold_kernel_operands(model)
 
     @torch.inference_mode()
     def logits(images_u8):

@@ -25,9 +25,10 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from rtda_semanticsegmentation_tpu.ops.pallas_conv3 import conv3x3s1p1
 from rtda_semanticsegmentation_tpu_torch.kernels import conv3x3 as k4
-from rtda_semanticsegmentation_tpu_torch.models.layers import ConvBN, QuantPolicy, fold_fused_conv3
+from rtda_semanticsegmentation_tpu_torch.models.layers import ConvBN, QuantPolicy, fold_kernel_operands
 
 
 def assert_close(got, ref):
@@ -176,9 +177,9 @@ def test_fused_convbn_is_k4_on_the_folded_batch_norm(d, relu):
     bf16 rounding (that one rounds the conv to bf16 before the BatchNorm)."""
     m = _convbn(5 + d, 16, 19, d, relu)
     x = torch.randn(2, 16, 9, 13, generator=torch.Generator().manual_seed(d)).to(torch.bfloat16)
-    with pytest.raises(RuntimeError, match="fold_fused_conv3"):
+    with pytest.raises(RuntimeError, match="fold_kernel_operands"):
         m(x)
-    fold_fused_conv3(m)
+    fold_kernel_operands(m)
     assert m.k4_weight.shape == (3, 3, 16, 24) and m.k4_weight.dtype == torch.bfloat16
     assert "k4_weight" not in m.state_dict()  # non-persistent: the bridge never sees it
     got = m(x)
@@ -201,9 +202,24 @@ def test_fused_convbn_refuses_what_k4_cannot_run():
         ConvBN(128, 8, 3, 1, 1, dtype=torch.bfloat16, fused_conv3=True,
                quant=QuantPolicy("calib"), path="layer")
     m = _convbn(0, 8, 8)
-    fold_fused_conv3(m)
+    fold_kernel_operands(m)
     with pytest.raises(RuntimeError, match="eval path"):
         m.train()(torch.zeros(1, 8, 4, 4, dtype=torch.bfloat16))
     # stride 2, 1x1 and padding != dilation stay on F.conv2d
     for args in ((3, 2, 1), (1, 1, 0), (3, 1, 2)):
         assert not ConvBN(8, 8, *args, dtype=torch.bfloat16, fused_conv3=True).fused
+
+
+def test_launch_plan_at_the_serve_path_shapes():
+    """The N tile of every K4 conv of the three serve paths
+    (chip_smoke.CONV3_SHAPES, the port's bf16 weights with CO padded to 8):
+    64 for CO = 64, 128 for 128-512, 24 for the FFMs' 19; no operand copy.
+    f32 operands, C or a row stride off a multiple of 8, or a misaligned
+    base take a bf16 copy."""
+    bf = torch.bfloat16
+    plans = {where: k4.launch_plan(c, co, -(-co // 8) * 8, bf, bf) for where, c, co, *_ in chip_smoke.CONV3_SHAPES}
+    want = {where: ({19: 24, 64: 64}.get(co, 128), False, False) for where, c, co, *_ in chip_smoke.CONV3_SHAPES}
+    assert plans == want and {n for n, *_ in plans.values()} == {24, 64, 128}
+    assert k4.launch_plan(13, 19, 24, bf, bf) == (24, True, False)
+    assert k4.launch_plan(24, 5, 5, torch.float32, torch.float32) == (24, True, True)
+    assert k4.launch_plan(64, 200, 200, bf, bf, x_aligned=True, w_aligned=False) == (128, False, True)

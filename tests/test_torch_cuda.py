@@ -21,13 +21,19 @@ from rtda_semanticsegmentation_tpu_torch.kernels import lovasz as klov
 from rtda_semanticsegmentation_tpu_torch.ops.losses import lovasz_softmax_binned
 
 # (kernel, stride, pad, C, CO): BiSeNet-R18's quantized conv shapes, narrowed
+# (on 15x17 maps, so stride 2 meets odd sizes and a 128-pixel tile straddles
+# the two images), the FFM's N = 24 tile with stride 2, and C not a multiple
+# of 16 (the padded copy of xq)
 SHAPES = [(3, 1, 1, 128, 128), (3, 2, 1, 32, 48), (1, 2, 0, 32, 48), (3, 1, 1, 64, 19),
-          (3, 2, 1, 64, 19), (3, 1, 1, 6, 5)]
+          (3, 2, 1, 64, 19), (3, 1, 1, 6, 5), (3, 2, 1, 16, 24), (3, 1, 1, 13, 19)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,s,p,C,CO", SHAPES)
 def test_int8_conv_kernel_matches_plain_version(k, s, p, C, CO):
+    """Bit-identical; each call from the HWIO weights makes its K-major copy
+    (and a padded xq where launch_plan says so), a call given
+    ``kmajor_weights`` makes none but that xq."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.RandomState(k * 1000 + C + CO)
@@ -37,16 +43,20 @@ def test_int8_conv_kernel_matches_plain_version(k, s, p, C, CO):
     a = torch.from_numpy(rng.rand(CO).astype(np.float32) * 1e-4).to(dev)
     b = torch.from_numpy(rng.randn(CO).astype(np.float32)).to(dev)
     inv = torch.from_numpy((rng.rand(CO).astype(np.float32) + 0.5) * 50).to(dev)
-    before = k3.launches
+    kmajor = k3.kmajor_weights(wq)
+    copy_x = int(k3.launch_plan(C, CO)[1])
+    before = (k3.launches, k3.copies)
     for inv_out, relu, dt in ((None, False, torch.bfloat16), (None, True, torch.float32),
                               (inv, True, torch.bfloat16)):
         kw = dict(stride=s, padding=p, relu=relu, out_dtype=dt)
-        got = k3.int8_conv(xq, wq, a, b, inv_out, **kw)
         want = k3.int8_conv_plain(xq, wq, a, b, inv_out, **kw)
-        torch.cuda.synchronize()
-        assert got.device == xq.device and got.dtype == want.dtype
-        assert torch.equal(got, want), (relu, dt, inv_out is not None)
-    assert k3.launches == before + 3
+        for prepared in (None, kmajor):
+            got = k3.int8_conv(xq, wq, a, b, inv_out, kmajor=prepared, **kw)
+            torch.cuda.synchronize()
+            assert got.device == xq.device and got.dtype == want.dtype
+            assert torch.equal(got, want), (relu, dt, inv_out is not None, prepared is None)
+    assert k3.launches == before[0] + 6
+    assert k3.copies == before[1] + 3 * (1 + 2 * copy_x)
 
 
 def _lovasz_case(seed, n, ignore_frac):
@@ -229,13 +239,16 @@ def test_fused_conv4x4_launches_only_the_needed_kernels(x_grad, w_grad, no_tf32)
 
 
 # (B, H, W, C, CO, dilation, x dtype): the serve paths' cases, narrowed (C and
-# CO multiples of 8: the 16-byte copy route), DeepLab's odd sizes and
-# dilations, the FFM's ragged CO = 19, more than one 64-channel N tile, and
-# the register route (f32 x, C not a multiple of 8, CO = 5)
+# CO multiples of 8: no operand copy), DeepLab's odd sizes and dilations, the
+# FFM's ragged CO = 19 on the N = 24 tile, more than one N tile, a 128-pixel
+# tile straddling two images (B = 2, 5x7), DeepLab's widths 257 and 129, the
+# R101 FFM's C = 3328, and the padded-copy routes (f32 x, C = 13 and 6, CO = 5)
 CONV3_SHAPES = [(2, 16, 32, 64, 64, 1, torch.bfloat16), (1, 17, 33, 128, 128, 1, torch.bfloat16),
                 (2, 9, 17, 64, 256, 2, torch.bfloat16), (1, 9, 17, 32, 64, 4, torch.bfloat16),
                 (2, 8, 16, 104, 19, 1, torch.bfloat16), (1, 7, 5, 24, 5, 1, torch.float32),
-                (1, 6, 10, 13, 19, 2, torch.bfloat16)]
+                (1, 6, 10, 13, 19, 2, torch.bfloat16), (2, 5, 7, 64, 64, 1, torch.bfloat16),
+                (1, 3, 257, 64, 64, 1, torch.bfloat16), (1, 5, 129, 128, 128, 2, torch.bfloat16),
+                (1, 4, 8, 3328, 19, 1, torch.bfloat16), (1, 6, 9, 6, 8, 1, torch.bfloat16)]
 
 
 @pytest.mark.cuda
@@ -243,15 +256,16 @@ CONV3_SHAPES = [(2, 16, 32, 64, 64, 1, torch.bfloat16), (1, 17, 33, 128, 128, 1,
 def test_conv3x3_kernel_matches_plain_version(b, h, w, c, co, d, x_dtype, no_tf32):
     """K4 with and without its epilogue, bf16 and f32 out, with the port's
     bf16 weights padded to a multiple of 8 in CO and with plain f32 HWIO
-    weights: the 4x4/s2 kernels' tolerance (``_assert_conv4_close``)."""
+    weights: the 4x4/s2 kernels' tolerance (``_assert_conv4_close``). The
+    wrapper copies exactly the operands ``launch_plan`` names."""
     g = torch.Generator(device="cuda").manual_seed(b * 100 + c + co + d)
     x = torch.randn((b, h, w, c), generator=g, device="cuda").to(x_dtype)
     wt = torch.randn((3, 3, c, co), generator=g, device="cuda") * (2.0 / (9 * c)) ** 0.5
     scale = torch.rand(co, generator=g, device="cuda") + 0.5
     shift = torch.randn(co, generator=g, device="cuda") * 0.1
     padded = torch.nn.functional.pad(wt, (0, -co % 8)).to(torch.bfloat16)[..., :co]
-    before = k4.launches
-    calls = 0
+    before = (k4.launches, k4.copies)
+    calls = copies = 0
     for weights in (padded, wt):
         for epilogue in ((), (scale, shift)):
             for relu in (False, True):
@@ -260,10 +274,11 @@ def test_conv3x3_kernel_matches_plain_version(b, h, w, c, co, d, x_dtype, no_tf3
                     got = k4.conv3x3(x, weights, *epilogue, **kw)
                     want = k4.conv3x3_plain(x, weights, *epilogue, **kw)
                     calls += 1
+                    copies += sum(k4.launch_plan(c, co, weights.stride(2), x.dtype, weights.dtype)[1:])
                     assert got.is_contiguous()
                     _assert_conv4_close(got, want.contiguous(), out_dtype == torch.bfloat16)
     torch.cuda.synchronize()
-    assert k4.launches == before + calls
+    assert (k4.launches, k4.copies) == (before[0] + calls, before[1] + copies)
 
 
 @pytest.mark.cuda

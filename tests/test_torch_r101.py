@@ -39,7 +39,7 @@ from rtda_semanticsegmentation_tpu_torch.kernels import conv3x3 as k4
 from rtda_semanticsegmentation_tpu_torch.models.convert import from_jax_variables, to_jax_variables
 from rtda_semanticsegmentation_tpu_torch.models.deeplabv2 import DeepLabV2
 from rtda_semanticsegmentation_tpu_torch.models.factory import build_model, init_model, load_variables
-from rtda_semanticsegmentation_tpu_torch.models.layers import ConvBN, fold_fused_conv3
+from rtda_semanticsegmentation_tpu_torch.models.layers import ConvBN, fold_kernel_operands
 from rtda_semanticsegmentation_tpu_torch.models.quantize import calibrate
 from rtda_semanticsegmentation_tpu_torch.ops.augment import normalize_u8
 from rtda_semanticsegmentation_tpu_torch.serving import make_serving_fn
@@ -198,7 +198,7 @@ def test_fused_conv3_routes_every_3x3_stride1_convbn_through_k4(monkeypatch, fie
     cfg = tconfig.ModelConfig(compute_dtype="bfloat16", **fields)
     model = build_model(cfg, device="cpu", fused_conv3=True)
     load_variables(model, init_model(model, torch.Generator().manual_seed(0)))
-    fold_fused_conv3(model)
+    fold_kernel_operands(model)
     assert sum(isinstance(m, ConvBN) and m.fused for m in model.modules()) == convs
     calls = _counting(monkeypatch)
     with torch.no_grad():

@@ -167,6 +167,7 @@ PORT_ENTRY_MODULES = (
     "chip_smoke",
     "profile_serve",
     "profile_train",
+    "profile_conv",
 )
 
 
