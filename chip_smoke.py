@@ -19,18 +19,24 @@ failure:
    shape, (8, 19, 512*1024) softmax probabilities with ~10% ignore labels:
    K1's count and fg rows and all of K2's output (both table forms) must be
    identical, K1's error sums within 1e-4 relative (f32 sums of up to 4 M
-   terms in another order), and K1 again at 1024 bins, where it splits the
-   classes over two block groups, to the same tolerance; the 3x3 conv (K4)
+   terms in another order), and K1 again at 1024 and 2048 bins, where it
+   splits the classes over block groups, to the same tolerance; K2 at 2048
+   bins, where its table splits the classes into two groups, identical in
+   both table forms, and the binned loss forward and backward at 2048 bins
+   with one K1 and one K2 launch; K5a-c on the flagship's softmax maps
+   (K5a and K5c within one bf16 ulp + 1e-5 * max |ref| at bf16 output and
+   1e-5 * max |ref| at f32, K5b within 1e-4 * max |ref|), with no operand
+   copy by their wrappers; the 3x3 conv (K4)
    against its plain version at every distinct shape of the three serve
    paths below, with and without its epilogue: f32 output within 1e-5 *
    max |ref|, bf16 output within one bf16 ulp + 1e-5 * max |ref| (f32 sums
    in another order).
-   Times each kernel, its plain version, its bound and, for K4, cuDNN's
-   bf16 ``channels_last`` conv alone (K3, K4 and cuDNN's conv replayed from
-   a CUDA graph, the device time without the host's; K3 and K4 also
-   launched back to back, per shape and summed per forward, the way the
-   other kernels are timed); prints K3's TOP/s and K4's TFLOP/s, the share
-   of the bound and the host microseconds per launch per shape;
+   Times each kernel, its plain version, its bound and, for K4 and K5a-c,
+   cuDNN's bf16 conv (K3, K4, K5a-c and cuDNN's convs replayed from a CUDA
+   graph, the device time without the host's; also launched back to back,
+   per shape and summed per forward or flagship step, the way K1 and K2 are
+   timed); prints the TOP/s or TFLOP/s, the share of the bound and the host
+   microseconds per launch per shape;
 4. serve: BiSeNet-R18 with seeded random weights, calibrated on 2 batches
    of 8 synthetic frames and frozen, serves 4 requests of 8 frames through
    ``make_serving_fn`` in bf16 and int8. Masks must be uint8 (8, 512, 1024)
@@ -75,7 +81,8 @@ failure:
    within 1e-2 relative: the bf16 discriminator rounds after sums taken in
    another order). Then 8 steps on one repeated batch: every loss finite,
    the mean of the last 3 below the first, loss_d first within 0.1 of ln 2,
-   and per step K5a launched 3 times, K5b 2, K5c 1, K1 1 and K2 1. Prints
+   and per step K5a launched 3 times, K5b 2, K5c 1, K1 1 and K2 1, with no
+   K5 operand copy. Prints
    ms/step, source img/s and peak memory, and the same time with the
    default discriminator.
 
@@ -110,7 +117,7 @@ from rtda_semanticsegmentation_tpu_torch.models.factory import (
 )
 from rtda_semanticsegmentation_tpu_torch.models.quantize import calibrate, freeze
 from rtda_semanticsegmentation_tpu_torch.ops.augment import normalize_u8
-from rtda_semanticsegmentation_tpu_torch.ops.losses import _binned_lovasz_forward
+from rtda_semanticsegmentation_tpu_torch.ops.losses import _binned_lovasz_forward, lovasz_softmax_binned
 from rtda_semanticsegmentation_tpu_torch.serving import make_serving_fn
 from rtda_semanticsegmentation_tpu_torch.train.optim import build_discriminator_tx, build_generator_tx
 from rtda_semanticsegmentation_tpu_torch.train.schedule import poly_lr_schedule
@@ -348,6 +355,37 @@ def _lovasz_hist_at(probas, labels, bins: int) -> None:
           f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
 
 
+def _lovasz_at_2048(probas, labels) -> None:
+    """At 2048 bins both kernels split the classes into groups (K2's
+    (19, 2, 2048) table needs 311,296 B): K1 as at 1024 bins; K2, from the
+    tables of K1's histogram, bit-identical to its plain version in both
+    table forms; the binned loss forward and backward, one launch of each."""
+    bins = 2048
+    _lovasz_hist_at(probas, labels, bins)
+    cg, groups, _ = klov.bwd_class_groups(CLASSES, bins)
+    _, tables, _ = _binned_lovasz_forward(klov.lovasz_hist(probas, labels, bins, 255), "present", True)
+    tables = (tables * 0.37).contiguous()
+    for interp, table in ((True, tables), (False, tables[:, 1].contiguous())):
+        got = klov.lovasz_bwd(probas, labels, table, bins, 255, interp)
+        want = klov.lovasz_bwd_plain(probas, labels, table, bins, 255, interp)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K2 at {bins} bins (interp={interp}) differs from the plain version: "
+                                 f"max |diff| {(got - want).abs().max().item()}")
+    del got, want
+    q = probas.view(BATCH, CLASSES, H, W).clone().requires_grad_(True)
+    before = (klov.hist_launches, klov.bwd_launches)
+    loss = lovasz_softmax_binned(q, labels.view(BATCH, H, W), 255, bins=bins)
+    loss.backward()
+    torch.cuda.synchronize()
+    launched = (klov.hist_launches - before[0], klov.bwd_launches - before[1])
+    finite = bool(torch.isfinite(loss)) and bool(torch.isfinite(q.grad).all())
+    print(f"kernel lovasz_bwd bins {bins} ({groups} groups of {cg} classes): identical (both table forms); "
+          f"binned loss forward and backward at {bins} bins: loss {loss.item():.6f}, launches (K1, K2) {launched}")
+    if launched != (1, 1) or not finite:
+        raise AssertionError(f"the binned loss at {bins} bins: launches {launched}, finite {finite}")
+
+
 def phase_lovasz_kernels() -> dict:
     probas, labels = _lovasz_case()
     p_bytes, l_bytes = probas.numel() * 4, labels.numel() * 4
@@ -372,6 +410,7 @@ def phase_lovasz_kernels() -> dict:
     print(f"kernel lovasz_hist (8, 19, {H * W}) bins {BINS}: count/fg rows identical, "
           f"error sums max |diff| {hist_err:.3e}; lovasz_bwd: identical (both table forms)")
     _lovasz_hist_at(probas, labels, 1024)
+    _lovasz_at_2048(probas, labels)
     out = {}
     for name, fn, plain, nbytes in (
         ("lovasz_hist", lambda: klov.lovasz_hist(probas, labels, BINS, 255),
@@ -412,15 +451,19 @@ def _within_bf16_ulp(got, want) -> bool:
 
 def phase_conv4_kernels() -> dict:
     """K5a on the source and target maps, K5b on both, K5c on the target:
-    the shapes of one adversarial step. Returns per-step totals (K5a x1
-    source + x2 target, K5b x1 each, K5c x1 target) for the kernels line."""
+    the shapes of one adversarial step, with no operand copy
+    (``conv4x4.copies``). Each kernel timed from a CUDA graph (the device
+    time, the ``kernels`` line) and back to back, with the host time per
+    launch. Returns per-step totals (K5a x1 source + x2 target, K5b x1
+    each, K5c x1 target) for the kernels line."""
     g = torch.Generator(device=DEV).manual_seed(3)
     w = torch.randn((NDF, CLASSES, 4, 4), generator=g, device=DEV) * 0.02
     w16 = w.to(torch.bfloat16)
     w_bytes = w.numel() * 4
     per_step = {"conv4x4s2p1": (1, 2), "conv4x4s2p1_dw": (1, 1), "conv4x4s2p1_dx": (0, 1)}
-    out = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0,
-                  "by": {"bytes": 0.0, "operations": 0.0}} for name in per_step}
+    out = {name: {"ms": 0.0, "stream_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                  "max_abs_err": 0.0, "by": {"bytes": 0.0, "operations": 0.0}} for name in per_step}
+    kc.copies = 0
     for where, hw, seed in (("source", SOURCE_HW, 10), ("target", TARGET_HW, 11)):
         x = _softmax_map(hw, seed)
         h, wd = hw
@@ -466,25 +509,33 @@ def phase_conv4_kernels() -> dict:
             count = per_step[name][where == "target"]
             if not count:
                 continue
-            ms = cuda_ms(fn, 20)
+            ms = graph_ms(fn)
+            stream_ms = cuda_ms(fn, 20)
+            us = host_us(fn)
             plain_ms = cuda_ms(plain, 5, 1)
-            library_ms = cuda_ms(library, 20)
+            library_ms = graph_ms(library)
             bound, by = bound_ms(nbytes, 2.0 * macs, PEAK_BF16_FLOPS)
             print(f"kernel {name} {where} {tuple(x.shape)}: {ms:.4f} ms "
-                  f"({2.0 * macs / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-                  f"cuDNN bf16 {library_ms:.4f} ms, bound {bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, "
-                  f"{2.0 * macs / 1e9:.1f} GFLOP), x{count} per step")
+                  f"({2.0 * macs / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {bound / ms:.3f} of the bound; {stream_ms:.4f} ms "
+                  f"launched back to back), plain {plain_ms:.4f} ms, cuDNN bf16 {library_ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, {2.0 * macs / 1e9:.1f} GFLOP), "
+                  f"host {us:.1f} us per launch, x{count} per step")
             entry = out[name]
             entry["ms"] += count * ms
+            entry["stream_ms"] += count * stream_ms
             entry["plain_ms"] += count * plain_ms
             entry["library_ms"] += count * library_ms
             entry["bound_ms"] += count * bound
             entry["by"][by] += count * bound
         del x, dy
+    if kc.copies:
+        raise AssertionError(f"the K5 wrappers copied {kc.copies} operands of the flagship's maps")
     for name, entry in out.items():
         by = entry.pop("by")
         entry["bound_by"] = "operations" if by["operations"] > by["bytes"] else "bytes"
-        print(f"kernel {name} per adversarial step: {entry['ms']:.4f} ms kernel, {entry['plain_ms']:.4f} ms plain, "
+        stream_ms = entry.pop("stream_ms")
+        print(f"kernel {name} per adversarial step: {entry['ms']:.4f} ms kernel ({stream_ms:.4f} ms launched back "
+              f"to back, {entry['bound_ms'] / entry['ms']:.3f} of the bound), {entry['plain_ms']:.4f} ms plain, "
               f"{entry['library_ms']:.4f} ms cuDNN, {entry['bound_ms']:.4f} ms bound")
     return out
 
@@ -947,8 +998,9 @@ def phase_adversarial() -> dict:
     torch.cuda.reset_peak_memory_stats()
     # the main path: the kernels' launches during the adversarial steps only
     klov.hist_launches = klov.bwd_launches = 0
-    kc.fwd_launches = kc.dw_launches = kc.dx_launches = 0
+    kc.fwd_launches = kc.dw_launches = kc.dx_launches = kc.copies = 0
     metrics, ms = _timed_steps(state, step, batch, gen, TRAIN_STEPS)
+    k5_copies = kc.copies
     launches = {"conv4x4s2p1": kc.fwd_launches, "conv4x4s2p1_dw": kc.dw_launches,
                 "conv4x4s2p1_dx": kc.dx_launches, "lovasz_hist": klov.hist_launches,
                 "lovasz_bwd": klov.bwd_launches}
@@ -960,7 +1012,7 @@ def phase_adversarial() -> dict:
         print(f"adversarial {cfg.train_mode} b{b} source {sh}x{sw} target {th}x{tw} "
               f"{cfg.model.compute_dtype}: {k} "
               + " ".join(f"{x:.4f}" for x in v))
-    print(f"adversarial: launches {launches} over {TRAIN_STEPS} steps")
+    print(f"adversarial: launches {launches} over {TRAIN_STEPS} steps, {k5_copies} K5 operand copies")
 
     # the same steps with the default discriminator (cuDNN conv1), for comparison
     state, step = _train_setup(cfg, DEV)
@@ -977,6 +1029,8 @@ def phase_adversarial() -> dict:
         raise AssertionError(f"the loss on a repeated batch did not fall: {losses['loss']}")
     if abs(losses["loss_d"][0] - np.log(2.0)) > 0.1:
         raise AssertionError(f"loss_d starts at {losses['loss_d'][0]}, not within 0.1 of ln 2")
+    if k5_copies:
+        raise AssertionError(f"the flagship path made {k5_copies} K5 operand copies")
     want = {"conv4x4s2p1": 3, "conv4x4s2p1_dw": 2, "conv4x4s2p1_dx": 1, "lovasz_hist": 1, "lovasz_bwd": 1}
     if launches != {k: n * TRAIN_STEPS for k, n in want.items()}:
         raise AssertionError(f"expected per step {want} launches, got {launches} over {TRAIN_STEPS} steps")

@@ -122,6 +122,14 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class ObservabilityConfig:
+    # per-module parameter and gradient L2 norms in the step's metrics
+    # (``watch/...``) when > 0; the train loop that would surface them every
+    # N steps is not ported yet
+    watch_freq_steps: int = 0
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
@@ -130,6 +138,7 @@ class ExperimentConfig:
     loss: LossConfig = field(default_factory=LossConfig)
     augment: AugmentConfig = field(default_factory=AugmentConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    obs: ObservabilityConfig = field(default_factory=ObservabilityConfig)
 
     @property
     def train_mode(self) -> str:

@@ -1,5 +1,5 @@
-// Pieces shared by the two wgmma implicit-GEMM convolutions (conv3x3.cu, K4,
-// bf16; int8_conv.cu, K3, s8): TMA loads into a ring of shared-memory stages
+// Pieces shared by the wgmma convolutions (conv3x3.cu, K4, bf16;
+// int8_conv.cu, K3, s8; conv4x4s2.cu, K5a and K5b, bf16): TMA loads into a ring of shared-memory stages
 // with full / empty mbarriers, wgmma shared-memory descriptors for the
 // 128-byte swizzle, and the host-side encoding of the tensor maps.
 //
@@ -103,6 +103,40 @@ __device__ __forceinline__ void tma_load_im2col(uint32_t dst, const CUtensorMap*
       : "memory");
 }
 
+// Tiled 4-D TMA load of one box into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Tiled 4-D TMA store of one box from shared memory (the parts of the box
+// outside the tensor are not written), in this thread's bulk group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2, int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// wait until at most N of this thread's committed bulk store groups have
+// not yet read their shared memory
+template <int N = 0>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// wait until this thread's bulk stores are complete
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+// makes this thread's generic writes to shared memory visible to TMA and wgmma
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+// barrier `id` (1-15) over `threads` threads (a multiple of 32)
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 // wait until at most N committed wgmma groups of this warpgroup are pending
@@ -129,10 +163,13 @@ __device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo, uint32_
 // The ring of a block: kStages stages of StageBytes from `ring` (aligned to
 // the 1024-byte swizzle atom), then the full and empty barriers. `full`
 // completes on the producer's arrival plus the stage's TMA bytes, `empty` on
-// every consumer thread's arrival.
-template <int StageBytes>
+// every consumer thread's arrival. The barriers take the first 128 bytes
+// after the stages; a kernel that keeps more in shared memory puts it 1024
+// bytes after them (`extra`).
+template <int StageBytes, int Stages = stages_for(StageBytes)>
 struct Ring {
-  static constexpr int kStages = stages_for(StageBytes);
+  static_assert(Stages >= 1 && Stages <= kMaxStages, "stages");
+  static constexpr int kStages = Stages;
   uint32_t ring, full, empty;
 
   __device__ explicit Ring(void* smem) {
@@ -141,6 +178,7 @@ struct Ring {
     empty = full + 8 * kMaxStages;
   }
   __device__ uint32_t stage(int s) const { return ring + s * StageBytes; }
+  __device__ uint32_t extra() const { return full + 1024; }
   __device__ uint32_t full_bar(int s) const { return full + 8 * s; }
   __device__ uint32_t empty_bar(int s) const { return empty + 8 * s; }
 
@@ -245,6 +283,28 @@ inline int encode_tiled_3d(CUtensorMap* map, CUtensorMapDataType dtype, int esiz
                              static_cast<cuuint32_t>(b2)};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult r = encode(map, dtype, 3, const_cast<void*>(base), dims, strides, box, elem_strides,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            swizzled ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+// A 4-D tensor (d0 innermost; strides of d1-d3 in bytes, multiples of 16)
+// as a tiled map with boxes of b0 x b1 x b2 x 1 elements, unswizzled or with
+// the 128-byte swizzle (b0 then spans 128 bytes). Out-of-bounds reads zero.
+inline int encode_tiled_4d(CUtensorMap* map, CUtensorMapDataType dtype, const void* base, long long d0, long long d1,
+                           long long d2, long long d3, long long stride1, long long stride2, long long stride3,
+                           int b0, int b1, int b2, bool swizzled) {
+  static EncodeTiled encode = reinterpret_cast<EncodeTiled>(driver_entry("cuTensorMapEncodeTiled"));
+  if (encode == nullptr) return kErrNoDriverEntry;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1), static_cast<cuuint64_t>(d2),
+                              static_cast<cuuint64_t>(d3)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(stride1), static_cast<cuuint64_t>(stride2),
+                                 static_cast<cuuint64_t>(stride3)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(b0), static_cast<cuuint32_t>(b1), static_cast<cuuint32_t>(b2),
+                             1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, dtype, 4, const_cast<void*>(base), dims, strides, box, elem_strides,
                             CU_TENSOR_MAP_INTERLEAVE_NONE,
                             swizzled ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

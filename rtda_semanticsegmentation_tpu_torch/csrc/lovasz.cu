@@ -28,16 +28,20 @@
 //   shared-memory atomics. Where the whole histogram does not fit a block's
 //   shared memory (C = 19 at 1024 bins needs 233,472 B), a second grid
 //   dimension splits the classes into groups of cg, and each block bins one
-//   group; at 256 bins there is one group;
+//   group; at 256 bins there is one group (of up to 32 classes);
 // - contention: at initialisation p ~ 1/C puts nearly every background pixel
 //   of a class into one bucket, so a warp's 32 lanes would hit one shared
 //   address. A warp whose valid lanes fall in at most kAggMax distinct
 //   buckets (__match_any_sync) first sums each bucket's lanes with shuffles
 //   and lets one lane per bucket add; a warp spread over more buckets adds
 //   lane by lane, where collisions are rare;
-// - K2 keeps the bf16-rounded table (C * 2 * bins f32, 39 KB) in shared
-//   memory; every operation is exact, so it matches its plain PyTorch version
-//   bit for bit.
+// - K2 keeps the bf16-rounded table (C * 2 * bins f32, 39 KB at 256 bins) in
+//   shared memory; where it does not fit a block (311,296 B at 2048 bins), a
+//   second grid dimension splits the classes into groups as K1 does, and each
+//   block reads and writes only its group's classes. Every operation is
+//   exact, so it matches its plain PyTorch version bit for bit;
+// - a group holds at most kMaxClasses classes, the probabilities a thread
+//   keeps in registers; more classes make more groups.
 //
 // Each launch function enqueues on the given stream and returns
 // cudaGetLastError().
@@ -159,13 +163,18 @@ __global__ void lovasz_hist_reduce(const unsigned* __restrict__ partial, float* 
   }
 }
 
+// Block (x, y) writes the gradient of the classes c0 = y * cg .. c0 + cn - 1
+// for its share of the pixels, from their rows of the table.
 __global__ void __launch_bounds__(kThreads, 4)
 lovasz_bwd_kernel(const float* __restrict__ probas, const int* __restrict__ labels,
                   const float* __restrict__ table, float* __restrict__ out,
-                  int B, int C, int N, int bins, int ignore, int interp) {
-  extern __shared__ float s_tab[];  // bf16-rounded table, (C, interp ? 2 : 1, bins)
+                  int B, int C, int N, int bins, int ignore, int interp, int cg) {
+  extern __shared__ float s_tab[];  // bf16-rounded table rows of the group, (cn, interp ? 2 : 1, bins)
   const int ntab = interp ? 2 : 1;
-  for (int i = threadIdx.x; i < C * ntab * bins; i += blockDim.x) s_tab[i] = bf16_round(table[i]);
+  const int c0 = blockIdx.y * cg;
+  const int cn = min(cg, C - c0);
+  const float* tab = table + static_cast<size_t>(c0) * ntab * bins;
+  for (int i = threadIdx.x; i < cn * ntab * bins; i += blockDim.x) s_tab[i] = bf16_round(tab[i]);
   __syncthreads();
 
   const int total = B * N;
@@ -174,16 +183,16 @@ lovasz_bwd_kernel(const float* __restrict__ probas, const int* __restrict__ labe
     const int n = pix - b * N;
     const int label = labels[pix];
     const bool valid = label != ignore;
-    const size_t base = static_cast<size_t>(b) * C * N + n;
+    const size_t base = (static_cast<size_t>(b) * C + c0) * N + n;
     float p[kMaxClasses];
 #pragma unroll
-    for (int c = 0; c < kMaxClasses; ++c) p[c] = c < C ? __ldg(probas + base + static_cast<size_t>(c) * N) : 0.0f;
+    for (int c = 0; c < kMaxClasses; ++c) p[c] = c < cn ? __ldg(probas + base + static_cast<size_t>(c) * N) : 0.0f;
 #pragma unroll
     for (int c = 0; c < kMaxClasses; ++c) {
-      if (c >= C) break;
+      if (c >= cn) break;
       float g = 0.0f;
       if (valid) {
-        const bool fg = label == c;
+        const bool fg = label == c0 + c;
         const int row = interp ? 2 * c + (fg ? 0 : 1) : c;
         const float coef = s_tab[row * bins + bucket(error(fg, p[c]), bins)];
         g = fg ? -coef : coef;  // coef * (1 - 2 fg), exactly
@@ -199,7 +208,7 @@ lovasz_bwd_kernel(const float* __restrict__ probas, const int* __restrict__ labe
 // partial holds groups * blocks * 3 * cg * bins u32.
 extern "C" int lovasz_hist_launch(const void* probas, const void* labels, void* partial, void* out,
                                   int B, int C, int N, int bins, int ignore, int blocks, int cg, void* stream) {
-  if (C < 1 || C > kMaxClasses || blocks < 1 || cg < 1 || cg > C) return cudaErrorInvalidValue;
+  if (C < 1 || blocks < 1 || cg < 1 || cg > C || cg > kMaxClasses) return cudaErrorInvalidValue;
   const size_t smem = static_cast<size_t>(3) * cg * bins * sizeof(unsigned);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(lovasz_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -218,17 +227,19 @@ extern "C" int lovasz_hist_launch(const void* probas, const void* labels, void* 
   return cudaGetLastError();
 }
 
+// blocks: blocks per class group; cg: classes per group (C for one group).
 extern "C" int lovasz_bwd_launch(const void* probas, const void* labels, const void* table, void* out,
-                                 int B, int C, int N, int bins, int ignore, int interp, int blocks,
+                                 int B, int C, int N, int bins, int ignore, int interp, int blocks, int cg,
                                  void* stream) {
-  if (C < 1 || C > kMaxClasses || blocks < 1) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(interp ? 2 : 1) * C * bins * sizeof(float);
+  if (C < 1 || blocks < 1 || cg < 1 || cg > C || cg > kMaxClasses) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(interp ? 2 : 1) * cg * bins * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(lovasz_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  lovasz_bwd_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(blocks, (C + cg - 1) / cg);
+  lovasz_bwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(probas), static_cast<const int*>(labels), static_cast<const float*>(table),
-      static_cast<float*>(out), B, C, N, bins, ignore, interp);
+      static_cast<float*>(out), B, C, N, bins, ignore, interp, cg);
   return cudaGetLastError();
 }

@@ -15,6 +15,17 @@ On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches the kernel in ``csrc/conv4x4s2.cu`` (built on first use,
 see :mod:`.build`) or raises. The TPU tiling arguments (``block_rows``,
 ``chunk``) have no counterpart.
+
+K5a and K5b read x (and K5b dy) by TMA, as bf16 rows whose pitch is a
+multiple of 16 bytes, and K5a writes y by TMA under the same rule.
+:func:`launch_plan` says, from the shapes and dtypes, how many tiles a
+launch has and which operand the wrapper first copies: an f32 x or dy
+becomes a bf16 copy (the kernels round them to bf16 all the same), a row
+width off the rule gets a copy with a padded pitch, and such a y is written
+padded and then copied out. ``copies`` counts them; the flagship's maps
+(720x1280 and 512x1024, bf16) take none. The launches are persistent: K5a
+and K5b one block per SM (a block takes 207-215 KB of shared memory), K5c
+two (~91 KB each).
 """
 
 from __future__ import annotations
@@ -33,9 +44,13 @@ fwd_launches = 0
 dw_launches = 0
 dx_launches = 0
 
+# Operand copies the wrappers of K5a and K5b made before a launch (launch_plan).
+copies = 0
+
 _MAX_C = 20
 _MAX_CO = 64
-_TILE_W = 128  # output columns of a K5a / K5b tile (csrc/conv4x4s2.cu)
+_TILE_W = 64  # output columns of a K5a / K5b tile of two output rows (csrc/conv4x4s2.cu)
+_DX_TILE_W = 256  # input columns of a K5c tile
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _lib = None
 
@@ -94,9 +109,45 @@ def _kernel_shape(x_shape, co, *dtypes):
     return b, c, h, wd
 
 
-def _blocks(device, tiles: int) -> int:
-    """Persistent blocks, two per SM (each holds ~90 KB of shared memory)."""
-    return max(1, min(tiles, 2 * torch.cuda.get_device_properties(device).multi_processor_count))
+def _blocks(device, tiles: int, per_sm: int) -> int:
+    """Persistent blocks: ``per_sm`` to an SM, no more than the tiles."""
+    return max(1, min(tiles, per_sm * torch.cuda.get_device_properties(device).multi_processor_count))
+
+
+def _pitch_ok(width: int, dtype) -> bool:
+    """A row of ``width`` elements is a multiple of 16 bytes (TMA's rule)."""
+    return width * (2 if dtype == torch.bfloat16 else 4) % 16 == 0
+
+
+def launch_plan(kind: str, x_shape, x_dtype, other_dtype, x_aligned: bool = True,
+                other_aligned: bool = True) -> tuple:
+    """``(tiles, copy_x, copy_other)`` of a K5a (``kind`` "fwd", other = y's
+    dtype) or K5b ("dw", other = dy) launch on x of shape (B, C, H, W).
+    A tile is two output rows by 64 output columns. x is
+    copied unless it is bf16 with W a multiple of 8 on a 16-byte aligned
+    base; K5a's y is written padded and copied out unless its row of W/2 is
+    a multiple of 16 bytes; K5b's dy is copied unless bf16 with W/2 a
+    multiple of 8 on an aligned base."""
+    if kind not in ("fwd", "dw"):
+        raise ValueError(f"kind must be 'fwd' or 'dw', got {kind!r}")
+    b, _, h, wd = x_shape
+    ho, wo = h // 2, wd // 2
+    tiles = b * -(-ho // 2) * -(-wo // _TILE_W)
+    copy_x = x_dtype != torch.bfloat16 or not _pitch_ok(wd, torch.bfloat16) or not x_aligned
+    if kind == "fwd":
+        copy_other = not _pitch_ok(wo, other_dtype)
+    else:
+        copy_other = other_dtype != torch.bfloat16 or not _pitch_ok(wo, torch.bfloat16) or not other_aligned
+    return tiles, copy_x, copy_other
+
+
+def _pitched_bf16(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 copy of the (..., W) tensor ``t`` in rows padded to a multiple
+    of 8 elements, as a (..., W) view."""
+    w = t.shape[-1]
+    out = torch.empty(t.shape[:-1] + (-(-w // 8) * 8,), device=t.device, dtype=torch.bfloat16)
+    out[..., :w] = t
+    return out[..., :w]
 
 
 def _is_bf16(dtype) -> int:
@@ -115,20 +166,24 @@ def conv4x4s2p1(x, w, out_dtype=torch.bfloat16) -> torch.Tensor:
     _cuda_operands(x, w)
     co = w.shape[0]
     b, c, h, wd = _kernel_shape(x.shape, co, x.dtype, out_dtype)
-    y = torch.empty((b, co, h // 2, wd // 2), device=x.device, dtype=out_dtype)
-    tiles = b * (h // 2) * -(-(wd // 2) // _TILE_W)
+    tiles, copy_x, copy_y = launch_plan("fwd", x.shape, x.dtype, out_dtype, x.data_ptr() % 16 == 0)
+    if copy_x:
+        x = _pitched_bf16(x)
+    ho, wo = h // 2, wd // 2
+    y_rows = -(-wo // 8) * 8 if copy_y else wo
+    y = torch.empty((b, co, ho, y_rows), device=x.device, dtype=out_dtype)
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.conv4x4s2_fwd_launch(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), b, c, h, wd, co,
-            _is_bf16(x.dtype), _is_bf16(out_dtype), _blocks(x.device, tiles),
-            torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), b, c, h, wd, co, x.stride(2), y_rows,
+            _is_bf16(out_dtype), _blocks(x.device, tiles, 1), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"conv4x4s2p1 launch failed: CUDA error {err}")
-    global fwd_launches
+    global fwd_launches, copies
     fwd_launches += 1
-    return y
+    copies += int(copy_x) + int(copy_y)
+    return y[..., :wo].contiguous() if copy_y else y
 
 
 def conv4x4s2p1_dw(x, dy) -> torch.Tensor:
@@ -146,19 +201,26 @@ def conv4x4s2p1_dw(x, dy) -> torch.Tensor:
     co = dy.shape[1]
     _cuda_operands(x, dy)
     _kernel_shape(x.shape, co, x.dtype, dy.dtype)
-    blocks = _blocks(x.device, b * (h // 2) * -(-(wd // 2) // _TILE_W))
+    tiles, copy_x, copy_dy = launch_plan("dw", x.shape, x.dtype, dy.dtype, x.data_ptr() % 16 == 0,
+                                         dy.data_ptr() % 16 == 0)
+    if copy_x:
+        x = _pitched_bf16(x)
+    if copy_dy:
+        dy = _pitched_bf16(dy)
+    blocks = _blocks(x.device, tiles, 1)
     partial = torch.empty((blocks, c * 16 * _MAX_CO), device=x.device, dtype=torch.float32)
     dw = torch.empty((co, c, 4, 4), device=x.device, dtype=torch.float32)
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.conv4x4s2_dw_launch(
             x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(), b, c, h, wd, co,
-            _is_bf16(x.dtype), _is_bf16(dy.dtype), blocks, torch.cuda.current_stream().cuda_stream,
+            x.stride(2), dy.stride(2), blocks, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"conv4x4s2p1_dw launch failed: CUDA error {err}")
-    global dw_launches
+    global dw_launches, copies
     dw_launches += 1
+    copies += int(copy_x) + int(copy_dy)
     return dw
 
 
@@ -178,12 +240,12 @@ def conv4x4s2p1_dx(dy, w, out_dtype=torch.bfloat16) -> torch.Tensor:
     x_shape = (b, w.shape[1], 2 * ho, 2 * wo)
     _, c, h, wd = _kernel_shape(x_shape, co, dy.dtype, out_dtype)
     dx = torch.empty(x_shape, device=dy.device, dtype=out_dtype)
-    tiles = b * (ho + 1) * -(-wd // (2 * _TILE_W))
+    tiles = b * (ho + 1) * -(-wd // _DX_TILE_W)
     lib = _library()
     with torch.cuda.device(dy.device):
         err = lib.conv4x4s2_dx_launch(
             dy.data_ptr(), w.data_ptr(), dx.data_ptr(), b, c, h, wd, co,
-            _is_bf16(dy.dtype), _is_bf16(out_dtype), _blocks(dy.device, tiles),
+            _is_bf16(dy.dtype), _is_bf16(out_dtype), _blocks(dy.device, tiles, 2),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -224,7 +286,7 @@ def _library():
         lib = load_library(SOURCE)
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.conv4x4s2_fwd_launch.argtypes = [p, p, p] + [i] * 8 + [p]
+        lib.conv4x4s2_fwd_launch.argtypes = [p, p, p] + [i] * 9 + [p]
         lib.conv4x4s2_fwd_launch.restype = i
         lib.conv4x4s2_dw_launch.argtypes = [p, p, p, p] + [i] * 8 + [p]
         lib.conv4x4s2_dw_launch.restype = i

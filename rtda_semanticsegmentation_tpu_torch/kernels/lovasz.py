@@ -20,6 +20,14 @@ Per class ``c`` and valid pixel (``label != ignore``), with
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches the kernel in ``csrc/lovasz.cu`` (built on first use,
 see :mod:`.build`) or raises. ``ignore=-1`` stands for "no ignore label".
+
+On the card both kernels keep their per-class tables in one block's shared
+memory: where all classes' tables do not fit, they split the classes into
+groups, one group per block row (:func:`class_groups` for K1,
+:func:`bwd_class_groups` for K2), still one launch each. A group holds at
+most 32 classes (the probabilities a thread keeps in registers), so any
+class count runs. Up to ``MAX_BINS`` = 16384 bins, the largest power of two
+whose one-class table fits a block; above it the wrappers raise.
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ hist_launches = 0
 bwd_launches = 0
 
 _THREADS = 256
-_MAX_CLASSES = 32
+_MAX_GROUP = 32  # classes of one block's group (csrc/lovasz.cu kMaxClasses)
+MAX_BINS = 16384  # the largest power of two whose one-class table fits a block, for both kernels
 _MAX_SMEM = 232448  # bytes of dynamic shared memory an H100 block may use
 _SM_SMEM = 233472  # bytes of shared memory of one H100 SM, for all its blocks
 _BLOCK_RESERVED = 1024  # bytes the runtime keeps per block
@@ -116,8 +125,6 @@ def _cuda_operands(probas, labels, *extra):
     for t in (probas, labels, *extra):
         if not t.is_contiguous():
             raise ValueError("the Lovász kernels need contiguous operands")
-    if probas.shape[1] > _MAX_CLASSES:
-        raise ValueError(f"the Lovász kernels take at most {_MAX_CLASSES} classes")
     if probas.numel() >= 2**31:
         raise ValueError("too many elements for the kernels' 32-bit indices")
 
@@ -126,17 +133,39 @@ def _grid(device, per_sm: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count * per_sm
 
 
+def _groups(c: int, row_bytes: int, max_per_sm: int) -> tuple:
+    """(classes per group, groups, blocks of one group that fit on an SM)
+    for a per-class table of ``row_bytes`` in one block's shared memory: the
+    fewest groups whose table fits, with at most ``_MAX_GROUP`` classes
+    each."""
+    groups = -(-c // min(_MAX_GROUP, _MAX_SMEM // row_bytes))
+    cg = -(-c // groups)
+    per_sm = max(1, min(max_per_sm, _SM_SMEM // (cg * row_bytes + _BLOCK_RESERVED)))
+    return cg, -(-c // cg), per_sm
+
+
+def _check_bins(bins: int) -> None:
+    if bins > MAX_BINS:
+        raise ValueError(f"the Lovász kernels take at most {MAX_BINS} bins (one class's table must fit "
+                         f"a block's {_MAX_SMEM} bytes of shared memory), got {bins}")
+
+
 def class_groups(c: int, bins: int) -> tuple:
     """(classes per group, groups, blocks of one group that fit on an SM):
     K1 splits the classes into the fewest groups whose (3, cg, bins) u32
     histogram fits one block's shared memory; at 256 bins (58 KB for 19
     classes) that is one group, three blocks to an SM."""
-    groups = -(-3 * c * bins * 4 // _MAX_SMEM)
-    cg = -(-c // groups)
-    if 3 * cg * bins * 4 > _MAX_SMEM:
-        raise ValueError(f"a (1, 3, {bins}) histogram exceeds a block's shared memory")
-    per_sm = max(1, min(3, _SM_SMEM // (3 * cg * bins * 4 + _BLOCK_RESERVED)))
-    return cg, -(-c // cg), per_sm
+    _check_bins(bins)
+    return _groups(c, 3 * bins * 4, 3)
+
+
+def bwd_class_groups(c: int, bins: int, interp: bool = True) -> tuple:
+    """(classes per group, groups, blocks of one group that fit on an SM):
+    K2 splits the classes into the fewest groups whose ((2 if interp else
+    1), cg, bins) f32 table fits one block's shared memory: for 19 classes
+    one group up to 1024 bins, 2 groups of 10 at 2048, 3 of 7 at 4096."""
+    _check_bins(bins)
+    return _groups(c, (2 if interp else 1) * bins * 4, 4)
 
 
 def lovasz_hist(probas, labels, bins: int, ignore: int) -> torch.Tensor:
@@ -177,13 +206,15 @@ def lovasz_bwd(probas, labels, table, bins: int, ignore: int, interp: bool) -> t
     b, c, n = _check(probas, labels, bins)
     _check_table(table, c, bins, interp)
     _cuda_operands(probas, labels, table)
+    cg, groups, per_sm = bwd_class_groups(c, bins, interp)
     out = torch.empty_like(probas)
-    blocks = max(1, min(_grid(probas.device, 4), -(-b * n // _THREADS)))
+    # one wave over all the class groups
+    blocks = max(1, min(_grid(probas.device, per_sm) // groups, -(-b * n // _THREADS)))
     lib = _library()
     with torch.cuda.device(probas.device):
         err = lib.lovasz_bwd_launch(
             probas.data_ptr(), labels.data_ptr(), table.data_ptr(), out.data_ptr(),
-            b, c, n, bins, ignore, int(interp), blocks, torch.cuda.current_stream().cuda_stream,
+            b, c, n, bins, ignore, int(interp), blocks, cg, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"lovasz_bwd launch failed: CUDA error {err}")
@@ -200,7 +231,7 @@ def _library():
         i = ctypes.c_int
         lib.lovasz_hist_launch.argtypes = [p, p, p, p] + [i] * 7 + [p]
         lib.lovasz_hist_launch.restype = i
-        lib.lovasz_bwd_launch.argtypes = [p, p, p, p] + [i] * 7 + [p]
+        lib.lovasz_bwd_launch.argtypes = [p, p, p, p] + [i] * 8 + [p]
         lib.lovasz_bwd_launch.restype = i
         _lib = lib
     return _lib

@@ -84,6 +84,31 @@ def _grad_norm(module: torch.nn.Module) -> torch.Tensor:
     return torch.nn.utils.get_total_norm([p.grad for p in module.parameters() if p.grad is not None])
 
 
+def _watch_norms(module: torch.nn.Module, tag: str) -> Metrics:
+    """Per-top-level-module L2 norms of the parameters and their gradients,
+    ``watch/<tag>/<module>/param_norm`` and ``.../grad_norm``, as the JAX
+    package's ``_watch_norms`` computes them. The port's modules carry the
+    flax paths, so the first component of a parameter's name is the flax
+    top-level module; batch statistics are buffers and take no part. A
+    module without gradients (the aux heads at ``aux_weight == 0``) has a
+    zero gradient in JAX, so its ``grad_norm`` is 0."""
+    params: Dict[str, list] = {}
+    grads: Dict[str, list] = {}
+    for name, p in module.named_parameters():
+        top = name.split(".", 1)[0]
+        params.setdefault(top, []).append(p.detach())
+        grads.setdefault(top, [])
+        if p.grad is not None:
+            grads[top].append(p.grad)
+    out: Metrics = {}
+    for top, ps in params.items():
+        out[f"watch/{tag}/{top}/param_norm"] = torch.nn.utils.get_total_norm(ps)
+        out[f"watch/{tag}/{top}/grad_norm"] = (
+            torch.nn.utils.get_total_norm(grads[top]) if grads[top]
+            else torch.zeros((), device=ps[0].device, dtype=ps[0].dtype))
+    return out
+
+
 def _update(optimizer: torch.optim.Optimizer, lr: float) -> None:
     for group in optimizer.param_groups:
         group["lr"] = lr
@@ -134,6 +159,9 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
     G's gradients), ``loss_ce`` and, when on, ``loss_lovasz`` and
     ``loss_aux``; the adversarial modes add ``loss_d``, ``lr_d``
     (``d_schedule``), ``grad_norm_d``, ``loss_seg`` and ``loss_adv_g``.
+    With ``obs.watch_freq_steps > 0`` every step adds the JAX package's
+    ``watch/g/<module>/{param,grad}_norm`` (and ``watch/d/...``), the
+    parameters' norms taken after the update.
     """
     if cfg.train.remat:
         raise NotImplementedError("train.remat is not ported to the PyTorch package yet")
@@ -147,6 +175,7 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
         raise ValueError("the adversarial modes need d_schedule")
     compute_dtype = getattr(torch, cfg.model.compute_dtype)
     use_aux = bool(cfg.loss.aux_weight)
+    watch = cfg.obs.watch_freq_steps > 0
 
     def source_step(state: TrainState, batch, generator) -> Tuple[TrainState, Metrics]:
         images, labels = _prep_source(batch, generator, cfg)
@@ -164,6 +193,8 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
             "grad_norm": grad_norm,
             **{k: v.detach() for k, v in parts.items()},
         }
+        if watch:
+            metrics.update(_watch_norms(state.model, "g"))
         state.step += 1
         return state, metrics
 
@@ -211,6 +242,9 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
             "loss_seg": loss_seg.detach(),
             "loss_adv_g": loss_adv.detach(),
         }
+        if watch:
+            metrics.update(_watch_norms(g, "g"))
+            metrics.update(_watch_norms(d, "d"))
         state.step += 1
         return state, metrics
 

@@ -264,8 +264,8 @@ def test_adversarial_presets_match_jax():
 
 def _cfgs(mode: str, dtype: str = "float64", **adv):
     """The JAX and port configs of one adversarial mode: ``adversarial``
-    with SGD for G and D (D with L2 decay), ``adversarial_lovasz`` with
-    Adam for both and the binned Lovász loss."""
+    with SGD for G and D (D with L2 decay) and the watch metrics on,
+    ``adversarial_lovasz`` with Adam for both and the binned Lovász loss."""
     lovasz = mode == "adversarial_lovasz"
     out = []
     for cfgmod in (jconfig, tconfig):
@@ -278,6 +278,7 @@ def _cfgs(mode: str, dtype: str = "float64", **adv):
             adversarial=dataclasses.replace(
                 cfg.adversarial, disc_optimizer="adam" if lovasz else "sgd",
                 disc_weight_decay=0.0 if lovasz else 1e-4, **adv),
+            obs=dataclasses.replace(cfg.obs, watch_freq_steps=0 if lovasz else 10),
         )
         out.append(cfg)
     return out
@@ -315,7 +316,8 @@ def _flat_params(tree, prefix="params"):
 @pytest.mark.parametrize("mode", ["adversarial", "adversarial_lovasz"])
 def test_adversarial_step_matches_jax(mode, x64):
     """One update, D first then G through the updated D, f64, both with the
-    plain first conv."""
+    plain first conv; in mode ``adversarial`` with the ``watch/g/...`` and
+    ``watch/d/...`` norms (rel 1e-9)."""
     jcfg, tcfg = _cfgs(mode)
     gflat = _jax_variables(3)
     dflat = {k: v.astype(np.float64) for k, v in _jax_d_flat(2).items()}
@@ -335,9 +337,11 @@ def test_adversarial_step_matches_jax(mode, x64):
 
     assert tm.keys() == jm.keys()
     assert ("loss_lovasz" in tm) == (mode == "adversarial_lovasz")
+    watched = {k.split("/")[1] for k in tm if k.startswith("watch/")}
+    assert watched == (set() if mode == "adversarial_lovasz" else {"g", "d"})
     loose = {"lr", "lr_d", "loss", "loss_lovasz"} | ({"loss_seg"} if mode == "adversarial_lovasz" else set())
     for k, v in jm.items():
-        assert tm[k] == pytest.approx(v, rel=1e-6 if k in loose else 1e-9), k
+        assert tm[k] == pytest.approx(v, rel=1e-6 if k in loose else 1e-9, abs=1e-300), k
     assert tm["loss_d"] == pytest.approx(np.log(2.0), abs=0.05)
 
     ours = _port_flat(state.model)

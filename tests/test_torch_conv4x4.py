@@ -159,3 +159,28 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         kc.conv4x4s2p1(torch.zeros(1, 3, 8, 8), torch.zeros(4, 2, 4, 4))
     with pytest.raises(ValueError, match="CPU or CUDA"):
         kc.conv4x4s2p1(torch.zeros(1, 3, 8, 8, device="meta"), w.to("meta"))
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dw"])
+def test_launch_plan_copies_only_what_tma_cannot_read(kind):
+    """A K5a or K5b tile is 2 output rows x 64 columns. The flagship's
+    bf16 maps (8 x 19 x 720x1280 and 512x1024) take no copy; an f32 operand,
+    a misaligned base or a row that is not a multiple of 16 bytes (bf16
+    W = 300 or 20, and their y and dy rows of 150 and 10) does."""
+    bf, f32 = torch.bfloat16, torch.float32
+    width = 64
+    for h, w in ((720, 1280), (512, 1024)):
+        tiles = 8 * -(-h // 4) * -(-(w // 2) // width)
+        assert kc.launch_plan(kind, (8, 19, h, w), bf, bf) == (tiles, False, False)
+    assert kc.launch_plan(kind, (1, 19, 2, 2), bf, bf)[0] == 1  # B = 1, H = 2
+    assert kc.launch_plan(kind, (1, 19, 36, 300), bf, bf) == (9 * -(-150 // width), True, True)
+    assert kc.launch_plan(kind, (1, 7, 12, 20), bf, bf) == (3, True, True)
+    assert kc.launch_plan(kind, (2, 19, 64, 96), f32, bf)[1:] == (True, False)
+    assert kc.launch_plan(kind, (2, 19, 64, 96), bf, bf, x_aligned=False)[1:] == (True, False)
+    # K5a writes an f32 y by TMA when its row of W/2 is a multiple of 4; K5b
+    # copies an f32 dy to bf16, and a misaligned one
+    other = kc.launch_plan(kind, (2, 19, 64, 104), bf, f32)[2]
+    assert other == (kind == "dw")
+    assert kc.launch_plan(kind, (2, 19, 64, 96), bf, bf, other_aligned=False)[2] == (kind == "dw")
+    with pytest.raises(ValueError, match="kind"):
+        kc.launch_plan("dx", (2, 19, 64, 96), bf, bf)

@@ -130,15 +130,58 @@ def test_lovasz_hist_kernel_splits_classes_past_shared_memory(bins):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bins,interp", [(2048, True), (4096, True), (4096, False)])
+def test_lovasz_bwd_kernel_splits_classes_past_shared_memory(bins, interp):
+    """19 classes' (2, bins) tables outgrow one block's shared memory from
+    2048 bins on, so K2 writes groups of classes in separate blocks: still
+    one launch, bit-identical to its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert klov.bwd_class_groups(19, bins, interp)[1] > 1
+    p, labels = _lovasz_case(bins + 1, 6144, 0.1)
+    g = torch.Generator(device="cuda").manual_seed(bins)
+    table = torch.randn((19, 2, bins) if interp else (19, bins), generator=g, device="cuda") * 0.01
+    before = klov.bwd_launches
+    got = klov.lovasz_bwd(p, labels, table, bins, 255, interp)
+    want = klov.lovasz_bwd_plain(p, labels, table, bins, 255, interp)
+    torch.cuda.synchronize()
+    assert klov.bwd_launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_lovasz_kernels_take_more_than_32_classes():
+    """40 classes at 256 bins: two groups of 20 in both kernels; K1's counts
+    exact and error sums within f32 reordering, K2 bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.RandomState(40)
+    logits = rng.randn(2, 40, 3000).astype(np.float32) * 3.0
+    q = np.exp(logits - logits.max(1, keepdims=True))
+    q /= q.sum(1, keepdims=True)
+    labels = rng.randint(0, 40, (2, 3000)).astype(np.int32)
+    labels[rng.rand(2, 3000) < 0.1] = 255
+    p, lab = torch.from_numpy(q).cuda(), torch.from_numpy(labels).cuda()
+    got = klov.lovasz_hist(p, lab, 256, 255)
+    want = klov.lovasz_hist_plain(p, lab, 256, 255)
+    table = torch.from_numpy(rng.randn(40, 2, 256).astype(np.float32) * 0.01).cuda()
+    grad = klov.lovasz_bwd(p, lab, table, 256, 255, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :2], want[:, :2])
+    torch.testing.assert_close(got[:, 2], want[:, 2], rtol=1e-5, atol=1e-5)
+    assert torch.equal(grad, klov.lovasz_bwd_plain(p, lab, table, 256, 255, True))
+
+
+@pytest.mark.cuda
 def test_binned_lovasz_launches_each_kernel_once_and_matches_the_cpu():
-    """One forward and backward of the loss on the card, at 256 and 1024
-    bins: one K1 and one K2 launch; loss and gradient equal the CPU's (rtol
-    1e-6: the error sums add in another order; the tables, from exact
-    counts, are the same)."""
+    """One forward and backward of the loss on the card, at 256, 1024 and
+    2048 bins (where K2 splits its classes): one K1 and one K2 launch; loss
+    and gradient equal the CPU's (rtol 1e-6: the error sums add in another
+    order; the tables, from exact counts, are the same)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     p, labels = _lovasz_case(9, 64 * 96, 0.1)
-    for bins in (256, 1024):
+    for bins in (256, 1024, 2048):
         _binned_lovasz_card_vs_cpu(p, labels, bins)
 
 
@@ -158,8 +201,11 @@ def _binned_lovasz_card_vs_cpu(p, labels, bins):
 
 
 # (B, C, H, W, CO): the discriminator's conv1 at a small size, an odd
-# channel count, and a width with ragged tiles
-CONV4_SHAPES = [(2, 19, 64, 96, 64), (1, 7, 12, 20, 16), (1, 19, 36, 300, 64)]
+# channel count, a width with ragged tiles (bf16 rows of 300 and 20: the
+# copy route), a width straddling two K5a tiles (and four K5b tiles), one
+# output row (B = 1, H = 2), and an odd number of output rows
+CONV4_SHAPES = [(2, 19, 64, 96, 64), (1, 7, 12, 20, 16), (1, 19, 36, 300, 64), (1, 19, 20, 400, 64),
+                (1, 19, 2, 96, 64), (2, 19, 22, 96, 64)]
 
 
 def _assert_conv4_close(got, want, bf16: bool):
@@ -204,10 +250,14 @@ def no_tf32():
 @pytest.mark.parametrize("b,c,h,w,co", CONV4_SHAPES)
 def test_conv4x4_kernels_match_plain_versions(b, c, h, w, co, dtype, no_tf32):
     """K5a and K5c at the module's tolerance; K5b (f32) within
-    1e-5 * max |want|: its sums over every pixel run in another order."""
+    1e-5 * max |want|: its sums over every pixel run in another order. The
+    wrappers copy exactly the operands ``launch_plan`` names."""
     x, wt, dy = _conv4_case(b, c, h, w, co, dtype)
     bf16 = dtype == torch.bfloat16
     before = (kc.fwd_launches, kc.dw_launches, kc.dx_launches)
+    copies = kc.copies + sum(sum(kc.launch_plan("fwd", x.shape, dtype, out)[1:])
+                             for out in (torch.bfloat16, torch.float32))
+    copies += sum(kc.launch_plan("dw", x.shape, dtype, dtype)[1:])
     for out_dtype in (torch.bfloat16, torch.float32):
         _assert_conv4_close(kc.conv4x4s2p1(x, wt, out_dtype), kc.conv4x4s2p1_plain(x, wt, out_dtype),
                             out_dtype == torch.bfloat16)
@@ -218,6 +268,7 @@ def test_conv4x4_kernels_match_plain_versions(b, c, h, w, co, dtype, no_tf32):
     _assert_conv4_close(kc.conv4x4s2p1_dx(dy, wt, dtype), kc.conv4x4s2p1_dx_plain(dy, wt, dtype), bf16)
     torch.cuda.synchronize()
     assert (kc.fwd_launches, kc.dw_launches, kc.dx_launches) == (before[0] + 2, before[1] + 1, before[2] + 1)
+    assert kc.copies == copies  # exactly what launch_plan names
     # the weight gradient is summed in a fixed order: the same bits twice
     assert torch.equal(kc.conv4x4s2p1_dw(x, dy), dw)
 

@@ -107,6 +107,33 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
         klov.lovasz_hist(tp, tl.long(), BINS, 255)
 
 
+@pytest.mark.parametrize("bins,hist,bwd", [
+    (256, (19, 1, 3), (19, 1, 4)), (1024, (10, 2, 1), (19, 1, 1)), (2048, (7, 3, 1), (10, 2, 1)),
+    (4096, (4, 5, 1), (7, 3, 1)), (16384, (1, 19, 1), (1, 19, 1))])
+def test_class_group_plans_fit_a_block(bins, hist, bwd):
+    """(classes per group, groups, blocks per SM) of K1 and K2 at 19 classes:
+    the fewest groups whose (3, cg, bins) u32 histogram and (2, cg, bins) f32
+    table fit a block's 232,448 bytes of shared memory."""
+    assert klov.class_groups(C, bins) == hist
+    assert klov.bwd_class_groups(C, bins) == bwd
+    for (cg, groups, _), rows in ((hist, 3), (bwd, 2)):
+        assert rows * cg * bins * 4 <= 232448 and cg * groups >= C
+        assert groups == 1 or rows * -(-C // (groups - 1)) * bins * 4 > 232448
+
+
+def test_class_groups_hold_at_most_32_classes_and_bins_stop_at_16384():
+    """More than 32 classes take more groups (a thread keeps one group's
+    probabilities in registers); above 16384 bins no class's table fits a
+    block, and both plans raise, naming the limit."""
+    assert klov.class_groups(40, 256) == (20, 2, 3)
+    assert klov.bwd_class_groups(40, 256) == (20, 2, 4)
+    assert klov.bwd_class_groups(C, 2048, interp=False) == (19, 1, 1)
+    assert klov.MAX_BINS == 16384
+    for plan in (klov.class_groups, klov.bwd_class_groups):
+        with pytest.raises(ValueError, match="at most 16384 bins"):
+            plan(C, 32768)
+
+
 def _nchw(p, labels):
     """(B, C, H, W) port probabilities, (B, H, W) labels and the JAX
     channel-last copies of the same values."""

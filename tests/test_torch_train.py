@@ -63,7 +63,8 @@ def _x64():
 
 
 def _cfgs(mode: str):
-    """The JAX and port configs of one source-only mode, f64 compute."""
+    """The JAX and port configs of one source-only mode, f64 compute;
+    ``vanilla`` with the watch metrics on (``obs.watch_freq_steps``)."""
     out = []
     for cfgmod in (jconfig, tconfig):
         cfg = cfgmod.get_preset("bisenet_source_small")
@@ -72,6 +73,7 @@ def _cfgs(mode: str):
             augment=dataclasses.replace(cfg.augment, pipeline="no_new_aug"),
             loss=dataclasses.replace(cfg.loss, use_lovasz=mode == "lovasz", lovasz_impl="binned"),
             optimizer=dataclasses.replace(cfg.optimizer, name="adam" if mode == "lovasz" else "sgd"),
+            obs=dataclasses.replace(cfg.obs, watch_freq_steps=10 if mode == "vanilla" else 0),
         )
         out.append(cfg)
     return out
@@ -144,7 +146,8 @@ def _jax_step(jcfg, flat, batch):
 @pytest.mark.parametrize("mode", ["lovasz", "vanilla"])
 def test_train_step_matches_jax(mode):
     """One ``make_train_step`` update: ``lovasz`` (binned loss, Adam) and
-    ``vanilla`` (CE, SGD), the ``test_train_parity.py`` bars."""
+    ``vanilla`` (CE, SGD, with the ``watch/g/<module>/{param,grad}_norm``
+    metrics, f64, rel 1e-9), the ``test_train_parity.py`` bars."""
     jcfg, tcfg = _cfgs(mode)
     flat = _jax_variables(3)
     images, labels, _ = _batch(4)
@@ -160,9 +163,10 @@ def test_train_step_matches_jax(mode):
     tm = {k: float(v) for k, v in metrics.items()}
 
     assert tm.keys() == jm.keys()
+    assert any(k.startswith("watch/") for k in tm) == (mode == "vanilla")
     for k, v in jm.items():
         rel = 1e-6 if k in ("lr", "loss", "loss_lovasz") else 1e-9
-        assert tm[k] == pytest.approx(v, rel=rel), k
+        assert tm[k] == pytest.approx(v, rel=rel, abs=1e-300), k
     if mode == "lovasz":
         assert tm["loss_lovasz"] > 0.1
     ours = _port_flat(model)
@@ -210,9 +214,11 @@ def test_aux_heads_decay_exemption(aux_weight):
 def test_unported_modes_raise():
     """What the port has not ported yet raises: ``train.remat``, training
     DeepLabV2 (its preset builds; its train model does not) and its
-    frozen-BatchNorm optimizer mask."""
+    frozen-BatchNorm optimizer mask. The watch metrics are ported: a config
+    that asks for them builds a step."""
     _, tcfg = _cfgs("vanilla")
     sched = poly_lr_schedule(1e-4, MAX_ITER)
+    assert tcfg.obs.watch_freq_steps > 0 and callable(make_train_step(tcfg, sched))
     with pytest.raises(NotImplementedError, match="not ported"):
         make_train_step(tcfg.replace(train=tconfig.TrainConfig(remat=True)), sched)
     with pytest.raises(NotImplementedError, match="not ported"):
