@@ -18,9 +18,12 @@ failure:
    histogram (K1) and backward (K2) against theirs at the train path's
    shape, (8, 19, 512*1024) softmax probabilities with ~10% ignore labels:
    K1's count and fg rows and all of K2's output (both table forms) must be
-   identical, K1's error sums within 1e-4 relative (f32 sums of up to 4 M
-   terms in another order), and K1 again at 1024 and 2048 bins, where it
-   splits the classes over block groups, to the same tolerance; K2 at 2048
+   identical, K1's error sums within 1e-4 relative (the kernel sums them in
+   40-bit fixed point, the plain version in f64) and the same bits on a
+   second run, on three distributions (a spread softmax, p = 1/C
+   everywhere, a near one-hot softmax), and K1 again at 1024 and 2048 bins,
+   where it splits the classes over block groups, to the same gates; K1 and
+   K2 are also timed at the flagship's source map (8, 19, 720*1280); K2 at 2048
    bins, where its table splits the classes into two groups, identical in
    both table forms, and the binned loss forward and backward at 2048 bins
    with one K1 and one K2 launch; K5a-c on the flagship's softmax maps
@@ -32,11 +35,11 @@ failure:
    max |ref|, bf16 output within one bf16 ulp + 1e-5 * max |ref| (f32 sums
    in another order).
    Times each kernel, its plain version, its bound and, for K4 and K5a-c,
-   cuDNN's bf16 conv (K3, K4, K5a-c and cuDNN's convs replayed from a CUDA
+   cuDNN's bf16 conv (every kernel and cuDNN's convs replayed from a CUDA
    graph, the device time without the host's; also launched back to back,
-   per shape and summed per forward or flagship step, the way K1 and K2 are
-   timed); prints the TOP/s or TFLOP/s, the share of the bound and the host
-   microseconds per launch per shape;
+   per shape and summed per forward or flagship step); prints the TOP/s,
+   TFLOP/s or GB/s, the share of the bound and the host microseconds per
+   launch per shape;
 4. serve: BiSeNet-R18 with seeded random weights, calibrated on 2 batches
    of 8 synthetic frames and frozen, serves 4 requests of 8 frames through
    ``make_serving_fn`` in bf16 and int8. Masks must be uint8 (8, 512, 1024)
@@ -320,38 +323,65 @@ def phase_kernels() -> dict:
             "library_ms": None}
 
 
-def _lovasz_case():
-    """(8, 19, 512*1024) probabilities from a seeded softmax, spread so the
-    buckets fill, and labels with ~10% ignore, on the card."""
+LOVASZ_DISTRIBUTIONS = ("spread", "uniform", "one-hot")
+
+
+def _lovasz_case(kind: str = "spread", n: int = H * W):
+    """(8, 19, n) probabilities and labels with ~10% ignore, on the card.
+    ``spread``: a softmax of 3 * randn logits, so the buckets fill;
+    ``uniform``: p = 1/C everywhere, the state at initialisation (every
+    background pixel of a class in one bucket, every foreground one in
+    another); ``one-hot``: a near one-hot softmax on a random class, a
+    confident model, whose errors fall in bucket 0 and bucket bins - 1."""
     g = torch.Generator(device=DEV).manual_seed(2)
-    n = H * W
-    logits = torch.randn((BATCH, CLASSES, n), generator=g, device=DEV) * 3.0
-    probas = torch.softmax(logits, dim=1)
+    if kind == "spread":
+        probas = torch.softmax(torch.randn((BATCH, CLASSES, n), generator=g, device=DEV) * 3.0, dim=1)
+    elif kind == "uniform":
+        probas = torch.full((BATCH, CLASSES, n), 1.0 / CLASSES, device=DEV)
+    elif kind == "one-hot":
+        top = torch.randint(0, CLASSES, (BATCH, 1, n), generator=g, device=DEV)
+        logits = torch.randn((BATCH, CLASSES, n), generator=g, device=DEV)
+        probas = torch.softmax(logits.scatter_add_(1, top, torch.full_like(logits[:, :1], 30.0)), dim=1)
+    else:
+        raise ValueError(f"unknown distribution {kind!r}")
     labels = torch.randint(0, CLASSES, (BATCH, n), generator=g, device=DEV, dtype=torch.int32)
     labels[torch.rand((BATCH, n), generator=g, device=DEV) < 0.1] = 255
     return probas, labels
 
 
-def _lovasz_hist_at(probas, labels, bins: int) -> None:
-    """K1 where its histogram outgrows one block's shared memory and the
-    classes split over block groups: counts identical, error sums within
-    1e-4 relative."""
-    cg, groups, _ = klov.class_groups(CLASSES, bins)
+def _check_hist(probas, labels, bins: int, what: str) -> tuple:
+    """K1 against its plain version: count and fg rows identical, error sums
+    within 1e-4 relative (of max(|ref|, 1)), and the same bits on a second
+    run (its sums are integers). Returns the histogram and the largest
+    |diff| of its error sums."""
     hist = klov.lovasz_hist(probas, labels, bins, 255)
     ref = klov.lovasz_hist_plain(probas, labels, bins, 255)
+    again = klov.lovasz_hist(probas, labels, bins, 255)
     torch.cuda.synchronize()
     if not torch.equal(hist[:, :2], ref[:, :2]):
         wrong = (hist[:, :2] != ref[:, :2]).sum().item()
-        raise AssertionError(f"K1 at {bins} bins: {wrong} count/fg entries differ from the plain version")
+        raise AssertionError(f"K1 {what}: {wrong} count/fg entries differ from the plain version")
     err = (hist[:, 2] - ref[:, 2]).abs()
     rel = (err / ref[:, 2].abs().clamp_min(1.0)).max().item()
     if rel > 1e-4:
-        raise AssertionError(f"K1 at {bins} bins: error sums differ from the plain version by {rel:.3e} relative")
-    ms = cuda_ms(lambda: klov.lovasz_hist(probas, labels, bins, 255), 20)
+        raise AssertionError(f"K1 {what}: error sums differ from the plain version by {rel:.3e} relative")
+    if not torch.equal(hist, again):
+        raise AssertionError(f"K1 {what}: two runs on the same input differ")
+    print(f"kernel lovasz_hist {what}: count/fg rows identical, error sums max |diff| {err.max().item():.3e} "
+          f"({rel:.2e} relative), the same bits on a second run")
+    return hist, err.max().item()
+
+
+def _lovasz_hist_at(probas, labels, bins: int) -> None:
+    """K1 where its histogram outgrows one block's shared memory and the
+    classes split over block groups, checked as at 256 bins."""
+    cg, groups, _ = klov.class_groups(CLASSES, bins)
+    _check_hist(probas, labels, bins, f"bins {bins} ({groups} groups of {cg} classes)")
+    ms = graph_ms(lambda: klov.lovasz_hist(probas, labels, bins, 255))
+    stream_ms = cuda_ms(lambda: klov.lovasz_hist(probas, labels, bins, 255), 20)
     plain_ms = cuda_ms(lambda: klov.lovasz_hist_plain(probas, labels, bins, 255), 5, 1)
     bound, by = bound_ms(probas.numel() * 4 + labels.numel() * 4 + CLASSES * 3 * bins * 4)
-    print(f"kernel lovasz_hist bins {bins} ({groups} groups of {cg} classes): count/fg rows identical, "
-          f"error sums max |diff| {err.max().item():.3e} ({rel:.2e} relative); {ms:.4f} ms, "
+    print(f"kernel lovasz_hist bins {bins}: {ms:.4f} ms ({stream_ms:.4f} ms launched back to back), "
           f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
 
 
@@ -386,18 +416,40 @@ def _lovasz_at_2048(probas, labels) -> None:
         raise AssertionError(f"the binned loss at {bins} bins: launches {launched}, finite {finite}")
 
 
-def phase_lovasz_kernels() -> dict:
-    probas, labels = _lovasz_case()
+def _lovasz_times(probas, labels, tables, where: str, plain: bool = True) -> dict:
+    """K1 and K2 (256 bins) timed from a CUDA graph (the ``kernels`` line)
+    and back to back, beside their bounds and plain versions."""
     p_bytes, l_bytes = probas.numel() * 4, labels.numel() * 4
-    hist = klov.lovasz_hist(probas, labels, BINS, 255)
-    ref = klov.lovasz_hist_plain(probas, labels, BINS, 255)
-    torch.cuda.synchronize()
-    if not torch.equal(hist[:, :2], ref[:, :2]):
-        raise AssertionError("K1: count/fg rows differ from the plain version")
-    err = (hist[:, 2] - ref[:, 2]).abs()
-    hist_err = err.max().item()
-    if not bool((err <= 1e-4 * ref[:, 2].abs().clamp_min(1.0)).all()):
-        raise AssertionError(f"K1: error sums differ from the plain version by up to {hist_err}")
+    out = {}
+    for name, fn, plain_fn, nbytes in (
+        ("lovasz_hist", lambda: klov.lovasz_hist(probas, labels, BINS, 255),
+         lambda: klov.lovasz_hist_plain(probas, labels, BINS, 255),
+         p_bytes + l_bytes + CLASSES * 3 * BINS * 4),
+        ("lovasz_bwd", lambda: klov.lovasz_bwd(probas, labels, tables, BINS, 255, True),
+         lambda: klov.lovasz_bwd_plain(probas, labels, tables, BINS, 255, True),
+         2 * p_bytes + l_bytes + tables.numel() * 4),
+    ):
+        ms = graph_ms(fn)
+        stream_ms = cuda_ms(fn, 20)
+        us = host_us(fn)
+        plain_ms = cuda_ms(plain_fn, 5, 1) if plain else None
+        bound, by = bound_ms(nbytes)
+        print(f"kernel {name} {where} {tuple(probas.shape)}: {ms:.4f} ms ({nbytes / (ms * 1e-3) / 1e9:.0f} GB/s, "
+              f"{bound / ms:.3f} of the bound; {stream_ms:.4f} ms launched back to back), plain "
+              + (f"{plain_ms:.4f} ms" if plain else "not timed")
+              + f", bound {bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB), host {us:.1f} us per launch")
+        # no single PyTorch call computes either function: no library time
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None}
+    return out
+
+
+def phase_lovasz_kernels() -> dict:
+    """K1 on the three distributions of ``LOVASZ_DISTRIBUTIONS`` at the
+    source-only step's shape and 256 bins, K2 against its plain version,
+    both at 1024 and 2048 bins, and both timed there and at the flagship's
+    source map (720x1280, spread)."""
+    probas, labels = _lovasz_case()
+    hist, hist_err = _check_hist(probas, labels, BINS, f"(8, 19, {H * W}) bins {BINS} spread")
     _, tables, _ = _binned_lovasz_forward(hist, "present", True)
     tables = (tables * 0.37).contiguous()  # a cotangent / present-count fold
     for interp, table in ((True, tables), (False, tables[:, 1].contiguous())):
@@ -407,27 +459,24 @@ def phase_lovasz_kernels() -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"K2 (interp={interp}) differs from the plain version: "
                                  f"max |diff| {(got - want).abs().max().item()}")
-    print(f"kernel lovasz_hist (8, 19, {H * W}) bins {BINS}: count/fg rows identical, "
-          f"error sums max |diff| {hist_err:.3e}; lovasz_bwd: identical (both table forms)")
+    print("kernel lovasz_bwd: identical (both table forms)")
+    del got, want
     _lovasz_hist_at(probas, labels, 1024)
     _lovasz_at_2048(probas, labels)
-    out = {}
-    for name, fn, plain, nbytes in (
-        ("lovasz_hist", lambda: klov.lovasz_hist(probas, labels, BINS, 255),
-         lambda: klov.lovasz_hist_plain(probas, labels, BINS, 255),
-         p_bytes + l_bytes + CLASSES * 3 * BINS * 4),
-        ("lovasz_bwd", lambda: klov.lovasz_bwd(probas, labels, tables, BINS, 255, True),
-         lambda: klov.lovasz_bwd_plain(probas, labels, tables, BINS, 255, True),
-         2 * p_bytes + l_bytes + tables.numel() * 4),
-    ):
-        ms = cuda_ms(fn, 20)
-        plain_ms = cuda_ms(plain, 5, 1)
-        bound, by = bound_ms(nbytes)
-        print(f"kernel {name}: {ms:.4f} ms ({nbytes / (ms * 1e-3) / 1e9:.0f} GB/s), plain {plain_ms:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)")
-        # no single PyTorch call computes either function: no library time
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                     "library_ms": None, "max_abs_err": hist_err if name == "lovasz_hist" else 0.0}
+    out = _lovasz_times(probas, labels, tables, "spread")
+    out["lovasz_hist"]["max_abs_err"] = hist_err
+    out["lovasz_bwd"]["max_abs_err"] = 0.0
+    del probas, labels
+    for kind in LOVASZ_DISTRIBUTIONS[1:]:
+        probas, labels = _lovasz_case(kind)
+        _, err = _check_hist(probas, labels, BINS, f"(8, 19, {H * W}) bins {BINS} {kind}")
+        out["lovasz_hist"]["max_abs_err"] = max(out["lovasz_hist"]["max_abs_err"], err)
+        ms = graph_ms(lambda: klov.lovasz_hist(probas, labels, BINS, 255))
+        stream_ms = cuda_ms(lambda: klov.lovasz_hist(probas, labels, BINS, 255), 20)
+        print(f"kernel lovasz_hist {kind}: {ms:.4f} ms ({stream_ms:.4f} ms launched back to back)")
+        del probas, labels
+    probas, labels = _lovasz_case("spread", SOURCE_HW[0] * SOURCE_HW[1])
+    _lovasz_times(probas, labels, tables, "flagship source map", plain=False)
     return out
 
 

@@ -16,19 +16,19 @@
 //
 // Layout: NCHW as the port keeps its softmax maps; w (CO, C, 4, 4) f32
 // (OIHW); y and dy (B, CO, H/2, W/2). H and W are even. C <= kMaxC,
-// CO <= kMaxCO. K5a and K5b read x (and K5b dy) as bf16 through TMA, which
-// needs 16-byte aligned bases and row pitches: each takes the row pitch of x
-// (and of y or dy) in elements, a multiple of 8 (4 for an f32 y). The
-// wrapper (kernels/conv4x4.py::launch_plan) copies an operand that is not so
-// (an f32 x or dy, a width off a multiple of 8); the flagship's maps need no
-// copy. K5c reads its operands as they are, bf16 or f32.
+// CO <= kMaxCO. The kernels read x and dy as bf16 and write y and dx
+// through TMA, which needs 16-byte aligned bases and row pitches: each takes
+// the row pitches of its operands in elements, a multiple of 8 (4 for an
+// f32 y or dx). The wrapper (kernels/conv4x4.py::launch_plan) copies an
+// operand that is not so (an f32 x or dy, a width off a multiple of 8) and
+// writes a padded y or dx, copied out; the flagship's maps need no copy.
 //
 // What bounds them on an H100: bytes. At the slice's shapes each kernel does
 // about 140 FLOP per byte it must move, below the card's bf16 ratio of ~295
-// (0.154 ms for a 720x1280 batch of 8). K5a and K5b are persistent, warp-
+// (0.154 ms for a 720x1280 batch of 8). All three are persistent, warp-
 // specialised wgmma kernels (hopper_conv.cuh): one block per SM, one TMA
-// producer thread keeping a ring of stages filled across tiles, and two
-// consumer warpgroups:
+// producer thread keeping a ring of stages filled across tiles, and
+// consumer warpgroups (two for K5a and K5b, three for K5c):
 // - a tile is two output rows, whose 6 input rows (a band; rows 2i-1 ..
 //   2i+2 of the first) come in by tiled 4-D TMA boxes (W, H, C, B) of 144
 //   columns per 64 output columns j0 .. j0+63: input columns 2 j0 - 8 on.
@@ -65,18 +65,30 @@
 //   tensor cores round their running sum toward zero). The blocks write
 //   partial (C*16, 64) sums to a workspace and a second kernel adds them in
 //   block order: deterministic, no float atomics;
-// - K5c (mma.sync): a gather, not the TPU's overlap-add. A tile is two input
-//   rows by 256 input columns; the pixels of one row and column parity see
-//   the same 2x2 taps, so each parity class is a GEMM pixels x (tap, co) x ci
-//   with dy staged channel-innermost. Every output is written once: no
-//   atomics, no scratch. Persistent blocks, two per SM (~91 KB of shared
-//   memory each, so one block stages its next tile while the other
-//   computes).
-// A wedged K5a/K5b pipeline traps after ~19 s (hopper_conv.cuh::mbar_wait).
+// - K5c: the TPU's overlap-add along columns, a gather along rows. Output
+//   rows 2i - 1 and 2i (a row pair) take the taps ky = ry + 2 from dy row
+//   i - 1 and ky = ry from row i, so a pair is one GEMM with K = (2 dy
+//   rows, co) = 128; M = (ry, kx, ci) = 3 m64 blocks, one per consumer
+//   warpgroup (8 channels each, C padded to 24); N = 144 dy columns, the
+//   tile's 128 and one 8-column group on each side. Warp w of a warpgroup
+//   holds the taps of one output row parity and column parity, so each
+//   output column adds one accumulator value of the thread to one of a
+//   neighbour lane (a shuffle): no shifted operand, and no output written
+//   twice. A (the weights) stays in registers for the launch; B (dy) comes
+//   by TMA as 1 KB boxes of 8 columns x 64 co per dy row, the unswizzled
+//   MN-major layout of 8 x 8 core matrices, read by descriptor; a tile is 2
+//   row pairs whose 3 dy rows are one stage, so each dy row crosses L2 to
+//   the SM 1.5 times (1.69 with the edge groups) instead of twice. dx goes
+//   out by TMA from swizzled buffers, two per warpgroup, row by row (the
+//   first pair's row -1 and the last pair's row H are skipped; TMA clips
+//   columns past W and channels past C). Persistent, one block per SM, one
+//   producer warpgroup and three consumer warpgroups (setmaxnreg 40 / 152);
+//   each output is a sum of two f32 chains of 128 products (round-to-
+//   nearest add), rounded once.
+// A wedged pipeline traps after ~19 s (hopper_conv.cuh::mbar_wait).
 //
-// Each launch function encodes the tensor maps on the host (K5a, K5b),
-// enqueues on the given stream and returns cudaGetLastError() or an encode
-// error.
+// Each launch function encodes the tensor maps on the host, enqueues on the
+// given stream and returns cudaGetLastError() or an encode error.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -372,50 +384,198 @@ conv_dw_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
   }
 }
 
-// ---- K5c (mma.sync) and the dW reduction ----
-constexpr int kThreads = 256;
-constexpr int kDxTileW = 256;             // input columns of a K5c tile
-constexpr int kDyCols = kDxTileW / 2 + 2; // dy columns a K5c tile reads
-constexpr int kCoPad = kMaxCO + 8;        // bf16 per channel-innermost K5c entry (36 words)
-constexpr int kLoadUnroll = 16;           // global loads in flight per thread while staging
+// ---- K5c (wgmma, TMA) ----
+constexpr int kDxPairs = 2;                          // output row pairs of a K5c tile
+constexpr int kDxRows = kDxPairs + 1;                // dy rows of its stage
+constexpr int kDxCols = 128;                         // dy columns whose outputs a tile writes
+constexpr int kDxGroups = kDxCols / 8 + 2;           // 8-column groups it reads: one more each side
+constexpr int kDxGroupBytes = kDxRows * kMaxCO * 16; // one group: [row][co][8 columns] bf16
+constexpr int kDxStage = kDxGroups * kDxGroupBytes;  // 55,296 B
+constexpr int kDxConsumers = 3;                      // one per 8 input channels
+constexpr int kDxThreads = 128 * (kDxConsumers + 1);
 
-__device__ __forceinline__ bf16 to_bf16(bf16 v) { return v; }
-__device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16_rn(v); }
+// Stages of K5c's ring: 3 with a bf16 dx, 2 with an f32 dx (whose output
+// buffers take twice the room).
+template <typename Tx>
+__host__ __device__ constexpr int dx_stages() { return sizeof(Tx) == 2 ? 3 : 2; }
 
-__device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+// One output buffer: 2 rows x 8 channels x 256 columns.
+template <typename Tx>
+__host__ __device__ constexpr int dx_out_bytes() { return 8 * 2 * 2 * kDxCols * sizeof(Tx); }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
+struct DxParams {
+  int C, CO, H, W, Ho, Wo;
+  int strips, chunks, tiles;
+};
 
-// d += a (16x16, row) * b (16x8, col), bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma(float* d, uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                    uint32_t b0, uint32_t b1) {
+// A tile of K5c: image b, row pairs i0 .. i0 + kDxPairs - 1, dy columns j0
+// .. j0 + 127 (strips fastest, so neighbouring strips share their edge
+// groups in L2).
+struct DxTile {
+  int b, i0, j0;
+  __device__ DxTile(int tile, const DxParams& p)
+      : b(tile / (p.strips * p.chunks)),
+        i0((tile / p.strips) % p.chunks * kDxPairs),
+        j0(tile % p.strips * kDxCols) {}
+};
+
+// d (+)= a (64 x 16, registers) * b (16 x 144, MN-major in shared memory):
+// wgmma m64n144k16, bf16 -> f32; scale_d 0 starts a fresh sum.
+__device__ __forceinline__ void wgmma_dx(float (&d)[72], const uint32_t (&a)[4], uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %77, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71}, "
+      "{%72, %73, %74, %75}, %76, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// Stages n values into shared memory: fetch(e) reads element e from device
-// memory as bf16, put(e, v) writes it. kLoadUnroll loads per thread are
-// issued before the first store, so their latencies overlap.
-template <typename Fetch, typename Put>
-__device__ __forceinline__ void stage(int n, Fetch fetch, Put put) {
-  for (int e0 = threadIdx.x; e0 < n; e0 += kThreads * kLoadUnroll) {
-    bf16 v[kLoadUnroll];
+__device__ __forceinline__ void fence_acc(float (&d)[72]) {
 #pragma unroll
-    for (int k = 0; k < kLoadUnroll; ++k) {
-      const int e = e0 + k * kThreads;
-      v[k] = e < n ? fetch(e) : __float2bfloat16_rn(0.0f);
+  for (int q = 0; q < 72; ++q) hconv::fence_reg(d[q]);
+}
+
+// K5c, the overlap-add of the TPU kernel along columns and a gather along
+// rows. Output rows 2i - 1 and 2i (a row pair) read dy rows i - 1 (taps
+// ky = ry + 2) and i (ky = ry), ry the row's parity. GEMM of a row pair:
+// M = (ry, kx, ci) in 3 m64 blocks, one per consumer warpgroup (channels
+// 8 wg .. 8 wg + 7); N = 144 dy columns, j0 - 8 .. j0 + 135; K = (dy row,
+// co), 128. Warp w of a warpgroup holds ry = w / 2 and the column parity
+// par = w % 2 of its outputs: rows g (kx = 1 + par) and g + 8 (kx = 3 - 3
+// par) of its 16, so that dx[2j + 1] = Z[j][kx 2] + Z[j + 1][kx 0] and
+// dx[2j] = Z[j][kx 1] + Z[j - 1][kx 3] add one value of the thread to one
+// of its neighbour lane (a shuffle). A, the weights, stays in registers for
+// the whole launch; B, dy, comes by TMA as 18 groups of 8 columns x 64 co x
+// 3 rows, the unswizzled MN-major layout of 8 x 8 core matrices, read by
+// descriptor (54 loads of 1 KB a stage). The epilogue writes the warpgroup's
+// 2 rows x 8 channels x 256 columns into a swizzled buffer, and one thread
+// stores it by TMA, row by row (rows -1 and H skipped; TMA clips columns
+// past W and channels past C); two buffers per warpgroup let the store run
+// under the next pair's MMAs.
+template <typename Tx>
+__global__ void __launch_bounds__(kDxThreads, 1)
+conv_dx_kernel(const __grid_constant__ CUtensorMap dymap, const __grid_constant__ CUtensorMap dxmap,
+               const float* __restrict__ w, DxParams p) {
+  constexpr int kEpb = 128 / sizeof(Tx);  // dx elements per 128-byte row of a store box
+  constexpr int kOutBytes = dx_out_bytes<Tx>();
+  extern __shared__ uint8_t smem[];
+  using R = hconv::Ring<kDxStage, dx_stages<Tx>(), kDxConsumers>;
+  const R r(smem);
+  r.init();
+  hconv::Cursor<R::kStages> c;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == kDxConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kDxConsumers * 128) {
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, c.next()) {
+        const DxTile t(tile, p);
+        hconv::mbar_wait(r.empty_bar(c.s), c.phase ^ 1);
+        const uint32_t full = r.full_bar(c.s), st = r.stage(c.s);
+        hconv::mbar_expect_tx(full, kDxStage);
+        for (int q = 0; q < kDxGroups; ++q)
+          for (int rr = 0; rr < kDxRows; ++rr)
+            hconv::tma_load_4d(st + q * kDxGroupBytes + rr * kMaxCO * 16, &dymap, full, t.j0 - 8 + 8 * q,
+                               t.i0 - 1 + rr, 0, t.b);
+      }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 152;\n");
+    const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3, warp = (threadIdx.x >> 5) & 3;
+    const int ry = warp >> 1, par = warp & 1, ci = 8 * wg + g;
+    // A fragment of k16 step ks: dy row i - 1 (ks < 4) or i, channels
+    // 16 (ks % 4) + 2 t4 (+1) and + 8; register f: row g (kx_g) or g + 8
+    // (kx_h) as f is even or odd
+    const int kx_g = 1 + par, kx_h = 3 - 3 * par;
+    uint32_t a[8][4];
 #pragma unroll
-    for (int k = 0; k < kLoadUnroll; ++k) {
-      const int e = e0 + k * kThreads;
-      if (e < n) put(e, v[k]);
+    for (int ks = 0; ks < 8; ++ks) {
+      const int ky = ry + (ks < 4 ? 2 : 0);
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int kx = (f & 1) ? kx_h : kx_g, co = 16 * (ks & 3) + 2 * t4 + 8 * (f >> 1);
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          v[h] = ci < p.C && co + h < p.CO ? w[(((co + h) * p.C + ci) * 4 + ky) * 4 + kx] : 0.0f;
+        const __nv_bfloat162 pair = __floats2bfloat162_rn(v[0], v[1]);
+        a[ks][f] = *reinterpret_cast<const uint32_t*>(&pair);
+      }
     }
+    uint8_t* const generic = smem - hconv::smem_u32(smem);  // shared address -> generic pointer
+    const bool elected = (threadIdx.x & 127) == 0;
+    // the neighbour lane whose value completes an output: t4 + 1 (par 1) or t4 - 1 (par 0)
+    const int src = (lane & ~3) | ((t4 + (par ? 1 : 3)) & 3);
+    float acc[72];
+    int n = 0;  // row pairs done by this warpgroup: output buffer n % 2
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, c.next()) {
+      const DxTile t(tile, p);
+      hconv::mbar_wait(r.full_bar(c.s), c.phase);
+      const uint32_t st = r.stage(c.s);
+      for (int pr = 0; pr < kDxPairs && t.i0 + pr <= p.Ho; ++pr, ++n) {
+        const int i = t.i0 + pr;
+        hconv::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks) {
+          const uint32_t b = st + (pr + (ks >> 2)) * (kMaxCO * 16) + (ks & 3) * 256;
+          wgmma_dx(acc, a[ks], hconv::desc_sw(b, 128, kDxGroupBytes, false), ks > 0);
+        }
+        hconv::wgmma_commit();
+        hconv::wgmma_wait<0>();
+        fence_acc(acc);
+
+        // epilogue: acc[4 q + e] is row g, column 8 q + 2 t4 + e; acc[4 q + 2 + e] row g + 8
+        const uint32_t out = r.extra() + (2 * wg + (n & 1)) * kOutBytes;
+        if (elected) hconv::bulk_wait_read<1>();  // the store of two pairs ago has read this buffer
+        hconv::named_barrier(1 + wg, 128);
+        const int line = 8 * ry + g;  // the buffer's 128-byte row: output row 2i - 1 + ry, channel g
+#pragma unroll
+        for (int q = 1; q <= 16; ++q) {
+          const float send = par ? (t4 == 0 ? acc[4 * q + 6] : acc[4 * q + 2]) : (t4 == 3 ? acc[4 * q - 1] : acc[4 * q + 3]);
+          const float nb = __shfl_sync(0xffffffffu, send, src);
+          const float v[2] = {par ? __fadd_rn(acc[4 * q], acc[4 * q + 3]) : __fadd_rn(acc[4 * q], nb),
+                              par ? __fadd_rn(acc[4 * q + 1], nb) : __fadd_rn(acc[4 * q + 1], acc[4 * q + 2])};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 16 * (q - 1) + 4 * t4 + 2 * e + par;  // output column - 2 j0
+            const int byte = (x % kEpb) * static_cast<int>(sizeof(Tx));
+            const uint32_t at = out + (x / kEpb) * 2048 + line * 128 + ((((byte >> 4) ^ (line & 7)) << 4) | (byte & 15));
+            put(reinterpret_cast<Tx*>(generic + at), v[e]);
+          }
+        }
+        hconv::fence_async_smem();
+        hconv::named_barrier(1 + wg, 128);
+        if (elected) {
+          for (int rw = 0; rw < 2; ++rw) {
+            const int y = 2 * i - 1 + rw;  // rows -1 and H are not stored
+            if (8 * wg >= p.C || y < 0 || y >= p.H) continue;
+            for (int k = 0; k < 2 * kDxCols / kEpb && 2 * t.j0 + k * kEpb < p.W; ++k)
+              hconv::tma_store_4d(&dxmap, out + k * 2048 + rw * 1024, 2 * t.j0 + k * kEpb, y, 8 * wg, t.b);
+          }
+          hconv::bulk_commit();  // one group per pair, empty where the warpgroup has no channel
+        }
+      }
+      hconv::mbar_arrive(r.empty_bar(c.s));
+    }
+    if (elected) hconv::bulk_wait();
   }
 }
+
+// ---- the dW reduction ----
+constexpr int kThreads = 256;
 
 // Sums the blocks' partial weight gradients in block order into dw (CO, C, 4, 4).
 __global__ void conv_dw_reduce(const float* __restrict__ partial, float* __restrict__ dw,
@@ -430,112 +590,9 @@ __global__ void conv_dw_reduce(const float* __restrict__ partial, float* __restr
   dw[static_cast<size_t>(co) * C * 16 + e / kMaxCO] = s;
 }
 
-// K5c. Block tile: input rows 2i-1 and 2i (both read dy rows i-1 and i),
-// columns x0 .. x0+255. Warp w: row r = w&1 (y = 2i-1+r), column parity
-// q = (w>>1)&1, half h = w>>2; its A rows are the pixels x0 + 2m + q with
-// m = 64h .. 64h+63 (4 m16 tiles). Row y takes ky in {r, r+2} from dy rows
-// i, i-1; column x takes kx = (q+1)&1 + {0, 2} from dy column
-// x0/2 + m + (q+1-kx)/2. N is ci (3 n8 tiles), K is (tap, co).
-template <typename Tdy, typename Tx>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_dx_kernel(const Tdy* __restrict__ dy, const float* __restrict__ w, Tx* __restrict__ dx,
-               int B, int C, int H, int W, int CO) {
-  extern __shared__ float4 smem4[];
-  bf16* ws = reinterpret_cast<bf16*>(smem4);  // [16 taps][24 ci][kCoPad]: w[co][ci][tap] at co
-  bf16* ds = ws + 16 * 24 * kCoPad;           // [2 rows][kDyCols][kCoPad]: dy rows i-1, i
-  const int Ho = H / 2, Wo = W / 2;
-  for (int e = threadIdx.x; e < 16 * 24 * kMaxCO; e += kThreads) {
-    const int co = e % kMaxCO, ci = (e / kMaxCO) % 24, tap = e / (kMaxCO * 24);
-    const float v = (ci < C && co < CO) ? w[(static_cast<size_t>(co) * C + ci) * 16 + tap] : 0.0f;
-    ws[(tap * 24 + ci) * kCoPad + co] = __float2bfloat16_rn(v);
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r = warp & 1, q = (warp >> 1) & 1;
-  const int mbase = (warp >> 2) * 64;
-  const int kxa = (q + 1) & 1;
-  const int tiles_w = (W + kDxTileW - 1) / kDxTileW;
-  const int tiles = B * (Ho + 1) * tiles_w;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int x0 = (tile % tiles_w) * kDxTileW;
-    const int i = (tile / tiles_w) % (Ho + 1);
-    const int b = tile / (tiles_w * (Ho + 1));
-    __syncthreads();
-    stage(
-        2 * kMaxCO * kDyCols,
-        [&](int e) {
-          const int jl = e % kDyCols;
-          const int co = (e / kDyCols) % kMaxCO;
-          const int row = i - 1 + e / (kDyCols * kMaxCO);
-          const int j = x0 / 2 - 1 + jl;
-          if (co >= CO || row < 0 || row >= Ho || j < 0 || j >= Wo) return __float2bfloat16_rn(0.0f);
-          return to_bf16(dy[((static_cast<size_t>(b) * CO + co) * Ho + row) * Wo + j]);
-        },
-        [&](int e, bf16 v) {
-          const int jl = e % kDyCols, co = (e / kDyCols) % kMaxCO, lr = e / (kDyCols * kMaxCO);
-          ds[(lr * kDyCols + jl) * kCoPad + co] = v;
-        });
-    __syncthreads();
-    const int yy = 2 * i - 1 + r;
-    if (yy < 0 || yy >= H) continue;  // every thread still meets the next tile's barriers
-    float acc[4][3][4];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int n = 0; n < 3; ++n)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[mt][n][k] = 0.0f;
-#pragma unroll
-    for (int ty = 0; ty < 2; ++ty) {
-      const int ky = r + 2 * ty;
-      const bf16* drow = ds + (1 - ty) * kDyCols * kCoPad;
-#pragma unroll
-      for (int tx = 0; tx < 2; ++tx) {
-        const int kx = kxa + 2 * tx;
-        const int col0 = mbase + g + 1 + (q + 1 - kx) / 2;
-        const bf16* wt = ws + ((ky * 4 + kx) * 24 + g) * kCoPad + 2 * t;
-        for (int c0 = 0; c0 < CO; c0 += 16) {
-          uint32_t bq[3][2];
-#pragma unroll
-          for (int n = 0; n < 3; ++n) {
-            bq[n][0] = ld32(wt + n * 8 * kCoPad + c0);
-            bq[n][1] = ld32(wt + n * 8 * kCoPad + c0 + 8);
-          }
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt) {
-            const bf16* a = drow + (col0 + 16 * mt) * kCoPad + c0 + 2 * t;
-            const uint32_t a0 = ld32(a), a1 = ld32(a + 8 * kCoPad), a2 = ld32(a + 8), a3 = ld32(a + 8 * kCoPad + 8);
-#pragma unroll
-            for (int n = 0; n < 3; ++n) mma(acc[mt][n], a0, a1, a2, a3, bq[n][0], bq[n][1]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int xx = x0 + 2 * (mbase + 16 * mt + g + 8 * (k >> 1)) + q;
-        if (xx >= W) continue;
-#pragma unroll
-        for (int n = 0; n < 3; ++n) {
-          const int ci = n * 8 + 2 * t + (k & 1);
-          if (ci < C) store(dx + ((static_cast<size_t>(b) * C + ci) * H + yy) * W + xx, acc[mt][n][k]);
-        }
-      }
-    }
-  }
-}
-
 bool valid_shape(int B, int C, int H, int W, int CO, int blocks) {
   return B >= 1 && C >= 1 && C <= kMaxC && CO >= 1 && CO <= kMaxCO && H >= 2 && W >= 2 &&
          H % 2 == 0 && W % 2 == 0 && blocks >= 1;
-}
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t smem) {
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
 }
 
 template <typename Ty>
@@ -595,21 +652,39 @@ int launch_dw(const void* x, const void* dy, void* partial, void* dw, int B, int
   return cudaGetLastError();
 }
 
-template <typename Tdy, typename Tx>
-cudaError_t launch_dx(const void* dy, const void* w, void* dx, int B, int C, int H, int W, int CO, int blocks,
-                      cudaStream_t s) {
-  const size_t smem = (static_cast<size_t>(16) * 24 * kCoPad + static_cast<size_t>(2) * kDyCols * kCoPad) * sizeof(bf16);
-  cudaError_t err = set_smem(conv_dx_kernel<Tdy, Tx>, smem);
-  if (err != cudaSuccess) return err;
-  conv_dx_kernel<Tdy, Tx><<<blocks, kThreads, smem, s>>>(
-      static_cast<const Tdy*>(dy), static_cast<const float*>(w), static_cast<Tx*>(dx), B, C, H, W, CO);
+template <typename Tx>
+int launch_dx(const void* dy, const void* w, void* dx, int B, int C, int H, int W, int CO, int dy_pitch, int dx_pitch,
+              int blocks, cudaStream_t s) {
+  constexpr int es = sizeof(Tx);
+  const int Ho = H / 2, Wo = W / 2;
+  CUtensorMap dymap, dxmap;
+  const long long dyrow = 2LL * dy_pitch, xrow = 1LL * es * dx_pitch;
+  // dy (Wo, Ho, CO, B): a box is 8 columns x 1 row x 64 co, [co][8 columns] in shared memory
+  int err = hconv::encode_tiled_4d(&dymap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, dy, Wo, Ho, CO, B, dyrow, dyrow * Ho,
+                                   dyrow * Ho * CO, 8, 1, kMaxCO, false);
+  if (err) return err;
+  // dx (W, H, C, B): a store box is 128 bytes x 1 row x 8 channels, 128-byte swizzle
+  err = hconv::encode_tiled_4d(&dxmap, es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                               dx, W, H, C, B, xrow, xrow * H, xrow * H * C, 128 / es, 1, 8, true);
+  if (err) return err;
+  const int strips = (Wo + kDxCols - 1) / kDxCols, chunks = (Ho + 1 + kDxPairs - 1) / kDxPairs;
+  const long long tiles = 1LL * B * strips * chunks;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const DxParams p{C, CO, H, W, Ho, Wo, strips, chunks, static_cast<int>(tiles)};
+  const int smem = 1024 + dx_stages<Tx>() * kDxStage + 1024 + 2 * kDxConsumers * dx_out_bytes<Tx>();
+  static_assert(1024 + 3 * kDxStage + 1024 + 6 * 8192 <= kMaxSmem, "K5c bf16 shared memory");
+  static_assert(1024 + 2 * kDxStage + 1024 + 6 * 16384 <= kMaxSmem, "K5c f32 shared memory");
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(conv_dx_kernel<Tx>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  conv_dx_kernel<Tx><<<blocks, kDxThreads, smem, s>>>(dymap, dxmap, static_cast<const float*>(w), p);
   return cudaGetLastError();
 }
 
 // K5a and K5b take x (and dy) bf16, 16-byte aligned, with row pitches in
-// elements (multiples of 8, and of 4 for an f32 y); blocks: persistent
-// blocks, one per SM. K5c: *_bf16 flags 1 for bf16, 0 for f32. Shapes are
-// those of x: (B, C, H, W).
+// elements (multiples of 8, and of 4 for an f32 y); K5c takes dy so and
+// writes dx with a row pitch of a multiple of 8 (bf16) or 4 (f32) elements.
+// blocks: persistent blocks, one per SM. Shapes are those of x: (B, C, H, W).
 bool pitched(const void* p, int pitch, int width, int esize) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && pitch >= width && (1LL * pitch * esize) % 16 == 0;
 }
@@ -634,11 +709,11 @@ extern "C" int conv4x4s2_dw_launch(const void* x, const void* dy, void* partial,
 }
 
 extern "C" int conv4x4s2_dx_launch(const void* dy, const void* w, void* dx, int B, int C, int H, int W, int CO,
-                                   int dy_bf16, int dx_bf16, int blocks, void* stream) {
-  if (!valid_shape(B, C, H, W, CO, blocks)) return cudaErrorInvalidValue;
+                                   int dy_pitch, int dx_pitch, int dx_bf16, int blocks, void* stream) {
+  if (!valid_shape(B, C, H, W, CO, blocks) || !pitched(dy, dy_pitch, W / 2, 2) ||
+      !pitched(dx, dx_pitch, W, dx_bf16 ? 2 : 4))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dy_bf16 && dx_bf16) return launch_dx<bf16, bf16>(dy, w, dx, B, C, H, W, CO, blocks, s);
-  if (dy_bf16) return launch_dx<bf16, float>(dy, w, dx, B, C, H, W, CO, blocks, s);
-  if (dx_bf16) return launch_dx<float, bf16>(dy, w, dx, B, C, H, W, CO, blocks, s);
-  return launch_dx<float, float>(dy, w, dx, B, C, H, W, CO, blocks, s);
+  if (dx_bf16) return launch_dx<bf16>(dy, w, dx, B, C, H, W, CO, dy_pitch, dx_pitch, blocks, s);
+  return launch_dx<float>(dy, w, dx, B, C, H, W, CO, dy_pitch, dx_pitch, blocks, s);
 }

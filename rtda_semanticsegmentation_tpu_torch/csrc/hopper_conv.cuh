@@ -1,5 +1,5 @@
 // Pieces shared by the wgmma convolutions (conv3x3.cu, K4, bf16;
-// int8_conv.cu, K3, s8; conv4x4s2.cu, K5a and K5b, bf16): TMA loads into a ring of shared-memory stages
+// int8_conv.cu, K3, s8; conv4x4s2.cu, K5a, K5b and K5c, bf16): TMA loads into a ring of shared-memory stages
 // with full / empty mbarriers, wgmma shared-memory descriptors for the
 // 128-byte swizzle, and the host-side encoding of the tensor maps.
 //
@@ -163,10 +163,10 @@ __device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo, uint32_
 // The ring of a block: kStages stages of StageBytes from `ring` (aligned to
 // the 1024-byte swizzle atom), then the full and empty barriers. `full`
 // completes on the producer's arrival plus the stage's TMA bytes, `empty` on
-// every consumer thread's arrival. The barriers take the first 128 bytes
-// after the stages; a kernel that keeps more in shared memory puts it 1024
-// bytes after them (`extra`).
-template <int StageBytes, int Stages = stages_for(StageBytes)>
+// the arrival of every thread of the Consumers consumer warpgroups. The
+// barriers take the first 128 bytes after the stages; a kernel that keeps
+// more in shared memory puts it 1024 bytes after them (`extra`).
+template <int StageBytes, int Stages = stages_for(StageBytes), int Consumers = kConsumers>
 struct Ring {
   static_assert(Stages >= 1 && Stages <= kMaxStages, "stages");
   static constexpr int kStages = Stages;
@@ -187,7 +187,7 @@ struct Ring {
     if (threadIdx.x == 0) {
       for (int s = 0; s < kStages; ++s) {
         mbar_init(full_bar(s), 1);
-        mbar_init(empty_bar(s), 128 * kConsumers);
+        mbar_init(empty_bar(s), 128 * Consumers);
       }
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }

@@ -17,15 +17,14 @@ see :mod:`.build`) or raises. The TPU tiling arguments (``block_rows``,
 ``chunk``) have no counterpart.
 
 K5a and K5b read x (and K5b dy) by TMA, as bf16 rows whose pitch is a
-multiple of 16 bytes, and K5a writes y by TMA under the same rule.
-:func:`launch_plan` says, from the shapes and dtypes, how many tiles a
-launch has and which operand the wrapper first copies: an f32 x or dy
-becomes a bf16 copy (the kernels round them to bf16 all the same), a row
-width off the rule gets a copy with a padded pitch, and such a y is written
-padded and then copied out. ``copies`` counts them; the flagship's maps
-(720x1280 and 512x1024, bf16) take none. The launches are persistent: K5a
-and K5b one block per SM (a block takes 207-215 KB of shared memory), K5c
-two (~91 KB each).
+multiple of 16 bytes, and K5a writes y by TMA under the same rule; K5c reads
+dy and writes dx so. :func:`launch_plan` says, from the shapes and dtypes,
+how many tiles a launch has and which operand the wrapper first copies: an
+f32 x or dy becomes a bf16 copy (the kernels round them to bf16 all the
+same), a row width off the rule gets a copy with a padded pitch, and such a
+y or dx is written padded and then copied out. ``copies`` counts them; the
+flagship's maps (720x1280 and 512x1024, bf16) take none. The launches are
+persistent, one block per SM (a block takes 207-217 KB of shared memory).
 """
 
 from __future__ import annotations
@@ -44,13 +43,13 @@ fwd_launches = 0
 dw_launches = 0
 dx_launches = 0
 
-# Operand copies the wrappers of K5a and K5b made before a launch (launch_plan).
+# Operand copies the wrappers made around a launch (launch_plan).
 copies = 0
 
 _MAX_C = 20
 _MAX_CO = 64
 _TILE_W = 64  # output columns of a K5a / K5b tile of two output rows (csrc/conv4x4s2.cu)
-_DX_TILE_W = 256  # input columns of a K5c tile
+_DX_COLS, _DX_PAIRS = 128, 2  # a K5c tile: 2 pairs of input rows x 256 input columns (128 dy columns)
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _lib = None
 
@@ -122,23 +121,27 @@ def _pitch_ok(width: int, dtype) -> bool:
 def launch_plan(kind: str, x_shape, x_dtype, other_dtype, x_aligned: bool = True,
                 other_aligned: bool = True) -> tuple:
     """``(tiles, copy_x, copy_other)`` of a K5a (``kind`` "fwd", other = y's
-    dtype) or K5b ("dw", other = dy) launch on x of shape (B, C, H, W).
-    A tile is two output rows by 64 output columns. x is
-    copied unless it is bf16 with W a multiple of 8 on a 16-byte aligned
+    dtype), K5b ("dw", other = dy) or K5c ("dx", x = dx, other = dy) launch
+    on x of shape (B, C, H, W). A K5a or K5b tile is two output rows by 64
+    output columns, a K5c tile two pairs of input rows by 256 input columns.
+    x is copied unless it is bf16 with W a multiple of 8 on a 16-byte aligned
     base; K5a's y is written padded and copied out unless its row of W/2 is
-    a multiple of 16 bytes; K5b's dy is copied unless bf16 with W/2 a
-    multiple of 8 on an aligned base."""
-    if kind not in ("fwd", "dw"):
-        raise ValueError(f"kind must be 'fwd' or 'dw', got {kind!r}")
+    a multiple of 16 bytes, and K5c's dx unless its row of W is; the dy of
+    K5b and K5c is copied unless bf16 with W/2 a multiple of 8 on an aligned
+    base."""
+    if kind not in ("fwd", "dw", "dx"):
+        raise ValueError(f"kind must be 'fwd', 'dw' or 'dx', got {kind!r}")
     b, _, h, wd = x_shape
     ho, wo = h // 2, wd // 2
+    copy_dy = other_dtype != torch.bfloat16 or not _pitch_ok(wo, torch.bfloat16) or not other_aligned
+    if kind == "dx":
+        tiles = b * -(-(ho + 1) // _DX_PAIRS) * -(-wo // _DX_COLS)
+        return tiles, not _pitch_ok(wd, x_dtype), copy_dy
     tiles = b * -(-ho // 2) * -(-wo // _TILE_W)
     copy_x = x_dtype != torch.bfloat16 or not _pitch_ok(wd, torch.bfloat16) or not x_aligned
     if kind == "fwd":
-        copy_other = not _pitch_ok(wo, other_dtype)
-    else:
-        copy_other = other_dtype != torch.bfloat16 or not _pitch_ok(wo, torch.bfloat16) or not other_aligned
-    return tiles, copy_x, copy_other
+        return tiles, copy_x, not _pitch_ok(wo, other_dtype)
+    return tiles, copy_x, copy_dy
 
 
 def _pitched_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -239,20 +242,23 @@ def conv4x4s2p1_dx(dy, w, out_dtype=torch.bfloat16) -> torch.Tensor:
     b, co, ho, wo = dy.shape
     x_shape = (b, w.shape[1], 2 * ho, 2 * wo)
     _, c, h, wd = _kernel_shape(x_shape, co, dy.dtype, out_dtype)
-    dx = torch.empty(x_shape, device=dy.device, dtype=out_dtype)
-    tiles = b * (ho + 1) * -(-wd // _DX_TILE_W)
+    tiles, copy_dx, copy_dy = launch_plan("dx", x_shape, out_dtype, dy.dtype, other_aligned=dy.data_ptr() % 16 == 0)
+    if copy_dy:
+        dy = _pitched_bf16(dy)
+    pitch = -(-wd // 8) * 8 if copy_dx else wd
+    dx = torch.empty((b, c, h, pitch), device=dy.device, dtype=out_dtype)
     lib = _library()
     with torch.cuda.device(dy.device):
         err = lib.conv4x4s2_dx_launch(
-            dy.data_ptr(), w.data_ptr(), dx.data_ptr(), b, c, h, wd, co,
-            _is_bf16(dy.dtype), _is_bf16(out_dtype), _blocks(dy.device, tiles, 2),
-            torch.cuda.current_stream().cuda_stream,
+            dy.data_ptr(), w.data_ptr(), dx.data_ptr(), b, c, h, wd, co, dy.stride(2), pitch,
+            _is_bf16(out_dtype), _blocks(dy.device, tiles, 1), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"conv4x4s2p1_dx launch failed: CUDA error {err}")
-    global dx_launches
+    global dx_launches, copies
     dx_launches += 1
-    return dx
+    copies += int(copy_dx) + int(copy_dy)
+    return dx[..., :wd].contiguous() if copy_dx else dx
 
 
 class Conv4x4s2p1(torch.autograd.Function):
@@ -290,7 +296,7 @@ def _library():
         lib.conv4x4s2_fwd_launch.restype = i
         lib.conv4x4s2_dw_launch.argtypes = [p, p, p, p] + [i] * 8 + [p]
         lib.conv4x4s2_dw_launch.restype = i
-        lib.conv4x4s2_dx_launch.argtypes = [p, p, p] + [i] * 8 + [p]
+        lib.conv4x4s2_dx_launch.argtypes = [p, p, p] + [i] * 9 + [p]
         lib.conv4x4s2_dx_launch.restype = i
         _lib = lib
     return _lib

@@ -25,9 +25,19 @@ On the card both kernels keep their per-class tables in one block's shared
 memory: where all classes' tables do not fit, they split the classes into
 groups, one group per block row (:func:`class_groups` for K1,
 :func:`bwd_class_groups` for K2), still one launch each. A group holds at
-most 32 classes (the probabilities a thread keeps in registers), so any
-class count runs. Up to ``MAX_BINS`` = 16384 bins, the largest power of two
-whose one-class table fits a block; above it the wrappers raise.
+most 32 classes (the probabilities or runs a thread keeps in registers), so
+any class count runs. Up to ``MAX_BINS`` = 16384 bins, the largest power of
+two whose one-class table fits a block; above it the wrappers raise.
+
+K1 sums in integers: counts exactly, the error sums as ``FIX_BITS`` = 40
+bit fixed-point numbers in u64 (each thread adds a run of errors in one
+bucket in f32, fewer than 256 terms, and rounds the run's sum to 2**-41),
+so its histogram is the same bits on every run. That takes at most
+``MAX_PIXELS`` = 2**24 - 1 pixels (B * N) a launch; above it the wrapper
+raises. :func:`hist_plan` says how a launch is cut: 4 pixels a
+thread where the rows allow 16-byte loads, and blocks of at most 65535
+pixels (each bin's count and foreground count share one 32-bit word of
+shared memory).
 """
 
 from __future__ import annotations
@@ -46,6 +56,10 @@ bwd_launches = 0
 
 _THREADS = 256
 _MAX_GROUP = 32  # classes of one block's group (csrc/lovasz.cu kMaxClasses)
+_SMALL_GROUP = 20  # K1 groups of up to 20 classes run 3 blocks to an SM, larger ones 2 (kSmallGroup)
+FIX_BITS = 40  # K1's error sums: u64 fixed point, round(s * 2**40) per run sum s
+MAX_PIXELS = 2**24 - 1  # K1: so many errors of at most 1.0 fit a u64 sum at FIX_BITS
+_BLOCK_PIXELS = 65535  # K1: pixels a block may take (16-bit counts in shared memory)
 MAX_BINS = 16384  # the largest power of two whose one-class table fits a block, for both kernels
 _MAX_SMEM = 232448  # bytes of dynamic shared memory an H100 block may use
 _SM_SMEM = 233472  # bytes of shared memory of one H100 SM, for all its blocks
@@ -152,11 +166,34 @@ def _check_bins(bins: int) -> None:
 
 def class_groups(c: int, bins: int) -> tuple:
     """(classes per group, groups, blocks of one group that fit on an SM):
-    K1 splits the classes into the fewest groups whose (3, cg, bins) u32
-    histogram fits one block's shared memory; at 256 bins (58 KB for 19
-    classes) that is one group, three blocks to an SM."""
+    K1 splits the classes into the fewest groups whose (cg, bins) histogram
+    of 12-byte entries (a u64 error sum, a u32 count and fg count) fits one
+    block's shared memory; at 256 bins (58 KB for 19 classes) that is one
+    group, three blocks to an SM; two for groups of more than 20 classes
+    (the registers of their per-class runs)."""
     _check_bins(bins)
-    return _groups(c, 3 * bins * 4, 3)
+    cg, groups, per_sm = _groups(c, 3 * bins * 4, 3)
+    return cg, groups, per_sm if cg <= _SMALL_GROUP else min(per_sm, 2)
+
+
+def hist_plan(b: int, c: int, n: int, bins: int, sms: int, aligned: bool = True) -> tuple:
+    """(pixels a thread takes at a time, classes per group, groups, blocks
+    per group) of a K1 launch on (b, c, n) probabilities on a card of
+    ``sms`` SMs: 4 pixels (16-byte loads) where ``n`` is a multiple of 4 and
+    the operands are 16-byte ``aligned``, else 1; one wave of blocks over
+    all the groups, but at least enough that no block takes more than 65535
+    pixels, and no more than one thread per load. Raises above
+    ``MAX_PIXELS``."""
+    if b * n > MAX_PIXELS:
+        raise ValueError(f"the Lovász histogram takes at most {MAX_PIXELS} pixels (2**24 - 1: its u64 error "
+                         f"sums at {FIX_BITS} fixed-point bits), got {b * n}")
+    cg, groups, per_sm = class_groups(c, bins)
+    vec = 4 if aligned and n % 4 == 0 else 1
+    items = b * n // vec
+    # a block takes at most ceil(items / (blocks * threads)) * threads items
+    cap = _BLOCK_PIXELS // vec // _THREADS * _THREADS
+    blocks = max(sms * per_sm // groups, -(-items // cap))
+    return vec, cg, groups, max(1, min(blocks, -(-items // _THREADS)))
 
 
 def bwd_class_groups(c: int, bins: int, interp: bool = True) -> tuple:
@@ -170,23 +207,24 @@ def bwd_class_groups(c: int, bins: int, interp: bool = True) -> tuple:
 
 def lovasz_hist(probas, labels, bins: int, ignore: int) -> torch.Tensor:
     """(B, C, N) f32 probabilities, (B, N) int32 labels -> (C, 3, bins) f32
-    [count, fg count, sum of bf16(error)] per class and error bucket."""
+    [count, fg count, sum of bf16(error)] per class and error bucket. On
+    the card the error sums are 40-bit fixed-point sums of f32 run sums, the
+    same bits on every run; at most ``MAX_PIXELS`` pixels."""
     if probas.device.type == "cpu":
         return lovasz_hist_plain(probas, labels, bins, ignore)
     if probas.device.type != "cuda":
         raise ValueError(f"lovasz_hist runs on CPU or CUDA tensors, got {probas.device}")
     b, c, n = _check(probas, labels, bins)
     _cuda_operands(probas, labels)
-    cg, groups, per_sm = class_groups(c, bins)
-    # one wave over all the class groups
-    blocks = max(1, min(_grid(probas.device, per_sm) // groups, -(-b * n // _THREADS)))
-    partial = torch.empty((groups, blocks, 3, cg, bins), device=probas.device, dtype=torch.int32)
+    aligned = probas.data_ptr() % 16 == 0 and labels.data_ptr() % 16 == 0
+    vec, cg, _, blocks = hist_plan(b, c, n, bins, _grid(probas.device, 1), aligned)
+    ws = torch.empty(2 * c * bins + 1, device=probas.device, dtype=torch.int64)  # zeroed by the launch
     out = torch.empty((c, 3, bins), device=probas.device, dtype=torch.float32)
     lib = _library()
     with torch.cuda.device(probas.device):
         err = lib.lovasz_hist_launch(
-            probas.data_ptr(), labels.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            b, c, n, bins, ignore, blocks, cg, torch.cuda.current_stream().cuda_stream,
+            probas.data_ptr(), labels.data_ptr(), ws.data_ptr(), out.data_ptr(),
+            b, c, n, bins, ignore, blocks, cg, int(vec == 4), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"lovasz_hist launch failed: CUDA error {err}")
@@ -229,7 +267,7 @@ def _library():
         lib = load_library(SOURCE)
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.lovasz_hist_launch.argtypes = [p, p, p, p] + [i] * 7 + [p]
+        lib.lovasz_hist_launch.argtypes = [p, p, p, p] + [i] * 8 + [p]
         lib.lovasz_hist_launch.restype = i
         lib.lovasz_bwd_launch.argtypes = [p, p, p, p] + [i] * 8 + [p]
         lib.lovasz_bwd_launch.restype = i

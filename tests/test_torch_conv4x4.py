@@ -161,26 +161,35 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         kc.conv4x4s2p1(torch.zeros(1, 3, 8, 8, device="meta"), w.to("meta"))
 
 
-@pytest.mark.parametrize("kind", ["fwd", "dw"])
+def _plan_tiles(kind, b, h, w):
+    """K5a and K5b: tiles of 2 output rows x 64 columns; K5c: 2 pairs of
+    input rows (rows 2i - 1, 2i for i = 0 .. H/2) x 128 dy columns."""
+    if kind == "dx":
+        return b * -(-(h // 2 + 1) // 2) * -(-(w // 2) // 128)
+    return b * -(-h // 4) * -(-(w // 2) // 64)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dw", "dx"])
 def test_launch_plan_copies_only_what_tma_cannot_read(kind):
-    """A K5a or K5b tile is 2 output rows x 64 columns. The flagship's
-    bf16 maps (8 x 19 x 720x1280 and 512x1024) take no copy; an f32 operand,
-    a misaligned base or a row that is not a multiple of 16 bytes (bf16
-    W = 300 or 20, and their y and dy rows of 150 and 10) does."""
+    """The flagship's bf16 maps (8 x 19 x 720x1280 and 512x1024) take no
+    copy; an f32 x or dy, a misaligned base or a row that is not a multiple
+    of 16 bytes (bf16 W = 300 or 20, and their y and dy rows of 150 and 10)
+    does. K5c's x is its output dx: written padded where its bf16 row is off
+    the rule, never copied for being f32 or for its base (the wrapper makes
+    it)."""
     bf, f32 = torch.bfloat16, torch.float32
-    width = 64
+    dx = kind == "dx"
     for h, w in ((720, 1280), (512, 1024)):
-        tiles = 8 * -(-h // 4) * -(-(w // 2) // width)
-        assert kc.launch_plan(kind, (8, 19, h, w), bf, bf) == (tiles, False, False)
+        assert kc.launch_plan(kind, (8, 19, h, w), bf, bf) == (_plan_tiles(kind, 8, h, w), False, False)
     assert kc.launch_plan(kind, (1, 19, 2, 2), bf, bf)[0] == 1  # B = 1, H = 2
-    assert kc.launch_plan(kind, (1, 19, 36, 300), bf, bf) == (9 * -(-150 // width), True, True)
-    assert kc.launch_plan(kind, (1, 7, 12, 20), bf, bf) == (3, True, True)
-    assert kc.launch_plan(kind, (2, 19, 64, 96), f32, bf)[1:] == (True, False)
-    assert kc.launch_plan(kind, (2, 19, 64, 96), bf, bf, x_aligned=False)[1:] == (True, False)
+    assert kc.launch_plan(kind, (1, 19, 36, 300), bf, bf) == (_plan_tiles(kind, 1, 36, 300), True, True)
+    assert kc.launch_plan(kind, (1, 7, 12, 20), bf, bf) == (_plan_tiles(kind, 1, 12, 20), True, True)
+    assert kc.launch_plan(kind, (2, 19, 64, 96), f32, bf)[1:] == (not dx, False)
+    assert kc.launch_plan(kind, (2, 19, 64, 96), bf, bf, x_aligned=False)[1:] == (not dx, False)
     # K5a writes an f32 y by TMA when its row of W/2 is a multiple of 4; K5b
-    # copies an f32 dy to bf16, and a misaligned one
+    # and K5c copy an f32 dy to bf16, and a misaligned one
     other = kc.launch_plan(kind, (2, 19, 64, 104), bf, f32)[2]
-    assert other == (kind == "dw")
-    assert kc.launch_plan(kind, (2, 19, 64, 96), bf, bf, other_aligned=False)[2] == (kind == "dw")
+    assert other == (kind != "fwd")
+    assert kc.launch_plan(kind, (2, 19, 64, 96), bf, bf, other_aligned=False)[2] == (kind != "fwd")
     with pytest.raises(ValueError, match="kind"):
-        kc.launch_plan("dx", (2, 19, 64, 96), bf, bf)
+        kc.launch_plan("dy", (2, 19, 64, 96), bf, bf)

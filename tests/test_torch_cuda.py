@@ -59,9 +59,17 @@ def test_int8_conv_kernel_matches_plain_version(k, s, p, C, CO):
     assert k3.copies == before[1] + 3 * (1 + 2 * copy_x)
 
 
-def _lovasz_case(seed, n, ignore_frac):
+def _lovasz_case(seed, n, ignore_frac, kind="spread"):
+    """(2, 19, n) probabilities and labels: ``spread`` a softmax of
+    3 * randn logits; ``uniform`` p = 1/C everywhere (every background pixel
+    of a class in one bucket); ``one-hot`` a near one-hot softmax on a random
+    class (errors in bucket 0 and bucket bins - 1)."""
     rng = np.random.RandomState(seed)
     logits = rng.randn(2, 19, n).astype(np.float32) * 3.0
+    if kind == "uniform":
+        logits[:] = 0.0
+    elif kind == "one-hot":
+        np.put_along_axis(logits, rng.randint(0, 19, (2, 1, n)), 30.0, axis=1)
     p = np.exp(logits - logits.max(1, keepdims=True))
     p /= p.sum(1, keepdims=True)
     labels = rng.randint(0, 19, (2, n)).astype(np.int32)
@@ -70,18 +78,22 @@ def _lovasz_case(seed, n, ignore_frac):
     return torch.from_numpy(p.astype(np.float32)).to(dev), torch.from_numpy(labels).to(dev)
 
 
-# (pixels per image, ignore share, ignore label): a full tile, a ragged
-# count, all ignored, and no ignore label
-LOVASZ_CASES = [(6144, 0.1, 255), (1001, 0.1, 255), (777, 1.0, 255), (513, 0.1, -1)]
+# (pixels per image, ignore share, ignore label, distribution): a full tile,
+# a ragged count (one pixel a thread), all ignored, no ignore label, the
+# state at initialisation, a confident model, and more than 2^20 pixels
+LOVASZ_CASES = [(6144, 0.1, 255, "spread"), (1001, 0.1, 255, "spread"), (777, 1.0, 255, "spread"),
+                (513, 0.1, -1, "spread"), (6144, 0.1, 255, "uniform"), (6144, 0.1, 255, "one-hot"),
+                (600000, 0.1, 255, "spread")]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,ignore_frac,ignore", LOVASZ_CASES)
-def test_lovasz_hist_kernel_matches_plain_version(n, ignore_frac, ignore):
-    """Counts exact; error sums within f32 reordering (rtol 1e-5, atol 1e-5)."""
+@pytest.mark.parametrize("n,ignore_frac,ignore,kind", LOVASZ_CASES)
+def test_lovasz_hist_kernel_matches_plain_version(n, ignore_frac, ignore, kind):
+    """Counts exact; error sums within their fixed-point rounding (rtol
+    1e-5, atol 1e-5); the same bits on a second run (integer sums)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    p, labels = _lovasz_case(n, n, ignore_frac)
+    p, labels = _lovasz_case(n, n, ignore_frac, kind)
     before = klov.hist_launches
     got = klov.lovasz_hist(p, labels, 256, ignore)
     want = klov.lovasz_hist_plain(p, labels, 256, ignore)
@@ -89,17 +101,18 @@ def test_lovasz_hist_kernel_matches_plain_version(n, ignore_frac, ignore):
     assert klov.hist_launches == before + 1
     assert torch.equal(got[:, :2], want[:, :2])
     torch.testing.assert_close(got[:, 2], want[:, 2], rtol=1e-5, atol=1e-5)
+    assert torch.equal(klov.lovasz_hist(p, labels, 256, ignore), got)
     if ignore_frac == 1.0:
         assert not bool(got.any())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("interp", [True, False])
-@pytest.mark.parametrize("n,ignore_frac,ignore", LOVASZ_CASES)
-def test_lovasz_bwd_kernel_matches_plain_version(interp, n, ignore_frac, ignore):
+@pytest.mark.parametrize("n,ignore_frac,ignore,kind", LOVASZ_CASES)
+def test_lovasz_bwd_kernel_matches_plain_version(interp, n, ignore_frac, ignore, kind):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    p, labels = _lovasz_case(n + 1, n, ignore_frac)
+    p, labels = _lovasz_case(n + 1, n, ignore_frac, kind)
     g = torch.Generator(device="cuda").manual_seed(n)
     table = torch.randn((19, 2, 256) if interp else (19, 256), generator=g, device="cuda") * 0.01
     before = klov.bwd_launches
@@ -202,10 +215,13 @@ def _binned_lovasz_card_vs_cpu(p, labels, bins):
 
 # (B, C, H, W, CO): the discriminator's conv1 at a small size, an odd
 # channel count, a width with ragged tiles (bf16 rows of 300 and 20: the
-# copy route), a width straddling two K5a tiles (and four K5b tiles), one
-# output row (B = 1, H = 2), and an odd number of output rows
+# copy route; K5c's 150 dy columns straddle two 128-column strips), a width
+# straddling two K5a tiles (and four K5b tiles), one output row (B = 1,
+# H = 2), an odd number of output rows; for K5c an odd number of row pairs
+# (the last tile's band half used) with a ragged strip of 4 dy columns, and
+# three images of exactly one strip and 7 row pairs each
 CONV4_SHAPES = [(2, 19, 64, 96, 64), (1, 7, 12, 20, 16), (1, 19, 36, 300, 64), (1, 19, 20, 400, 64),
-                (1, 19, 2, 96, 64), (2, 19, 22, 96, 64)]
+                (1, 19, 2, 96, 64), (2, 19, 22, 96, 64), (1, 19, 28, 264, 64), (3, 19, 12, 256, 64)]
 
 
 def _assert_conv4_close(got, want, bf16: bool):
@@ -251,13 +267,15 @@ def no_tf32():
 def test_conv4x4_kernels_match_plain_versions(b, c, h, w, co, dtype, no_tf32):
     """K5a and K5c at the module's tolerance; K5b (f32) within
     1e-5 * max |want|: its sums over every pixel run in another order. The
-    wrappers copy exactly the operands ``launch_plan`` names."""
+    wrappers copy exactly the operands ``launch_plan`` names; K5b and K5c
+    give the same bits twice."""
     x, wt, dy = _conv4_case(b, c, h, w, co, dtype)
     bf16 = dtype == torch.bfloat16
     before = (kc.fwd_launches, kc.dw_launches, kc.dx_launches)
     copies = kc.copies + sum(sum(kc.launch_plan("fwd", x.shape, dtype, out)[1:])
                              for out in (torch.bfloat16, torch.float32))
     copies += sum(kc.launch_plan("dw", x.shape, dtype, dtype)[1:])
+    copies += sum(kc.launch_plan("dx", x.shape, dtype, dtype)[1:])  # an f32 dy, a row off 16 bytes
     for out_dtype in (torch.bfloat16, torch.float32):
         _assert_conv4_close(kc.conv4x4s2p1(x, wt, out_dtype), kc.conv4x4s2p1_plain(x, wt, out_dtype),
                             out_dtype == torch.bfloat16)
@@ -271,6 +289,7 @@ def test_conv4x4_kernels_match_plain_versions(b, c, h, w, co, dtype, no_tf32):
     assert kc.copies == copies  # exactly what launch_plan names
     # the weight gradient is summed in a fixed order: the same bits twice
     assert torch.equal(kc.conv4x4s2p1_dw(x, dy), dw)
+    assert torch.equal(kc.conv4x4s2p1_dx(dy, wt, dtype), kc.conv4x4s2p1_dx(dy, wt, dtype))
 
 
 @pytest.mark.cuda

@@ -112,8 +112,8 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     (4096, (4, 5, 1), (7, 3, 1)), (16384, (1, 19, 1), (1, 19, 1))])
 def test_class_group_plans_fit_a_block(bins, hist, bwd):
     """(classes per group, groups, blocks per SM) of K1 and K2 at 19 classes:
-    the fewest groups whose (3, cg, bins) u32 histogram and (2, cg, bins) f32
-    table fit a block's 232,448 bytes of shared memory."""
+    the fewest groups whose (cg, bins) histogram of 12-byte entries and
+    (2, cg, bins) f32 table fit a block's 232,448 bytes of shared memory."""
     assert klov.class_groups(C, bins) == hist
     assert klov.bwd_class_groups(C, bins) == bwd
     for (cg, groups, _), rows in ((hist, 3), (bwd, 2)):
@@ -126,12 +126,45 @@ def test_class_groups_hold_at_most_32_classes_and_bins_stop_at_16384():
     probabilities in registers); above 16384 bins no class's table fits a
     block, and both plans raise, naming the limit."""
     assert klov.class_groups(40, 256) == (20, 2, 3)
+    assert klov.class_groups(25, 256) == (25, 1, 2)  # a group of more than 20 classes: 2 blocks an SM
     assert klov.bwd_class_groups(40, 256) == (20, 2, 4)
     assert klov.bwd_class_groups(C, 2048, interp=False) == (19, 1, 1)
     assert klov.MAX_BINS == 16384
     for plan in (klov.class_groups, klov.bwd_class_groups):
         with pytest.raises(ValueError, match="at most 16384 bins"):
             plan(C, 32768)
+
+
+def test_hist_plan_cuts_blocks_of_at_most_65535_pixels():
+    """K1's launch on a 132-SM card: 4 pixels a thread where N is a multiple
+    of 4 and the operands are aligned, else 1; one wave of blocks (3 an SM
+    at 256 bins), more where a block would take more than 65535 pixels (its
+    counts are 16 bits in shared memory), never more than one thread a
+    load."""
+    assert klov.hist_plan(8, C, 512 * 1024, 256, 132) == (4, 19, 1, 396)
+    assert klov.hist_plan(8, C, 720 * 1280, 256, 132) == (4, 19, 1, 396)
+    assert klov.hist_plan(8, C, 512 * 1024, 256, 132, aligned=False)[0] == 1
+    assert klov.hist_plan(2, C, 1001, 256, 132) == (1, 19, 1, 8)
+    assert klov.hist_plan(1, C, 4, 1024, 132) == (4, 10, 2, 1)
+    for b, n, bins, aligned in ((8, 2_000_000, 2048, True), (16, 1_048_575, 256, False),
+                                (1, 2**24 - 1, 1024, True), (4, 3_000_001, 256, True)):
+        vec, cg, groups, blocks = klov.hist_plan(b, C, n, bins, 132, aligned)
+        items = b * n // vec
+        threads = 256
+        per_block = -(-items // (blocks * threads)) * threads  # the grid stride's largest share
+        assert per_block * vec <= 65535 and blocks >= 132 * klov.class_groups(C, bins)[2] // groups
+
+
+def test_hist_plan_raises_above_its_pixel_limit():
+    """K1's u64 error sums at 40 fixed-point bits hold 2**24 - 1 errors of
+    at most 1.0: above that many pixels a launch raises, naming the limit."""
+    assert klov.FIX_BITS == 40 and klov.MAX_PIXELS == 2**24 - 1
+    assert klov.MAX_PIXELS * 2**klov.FIX_BITS < 2**64 <= (klov.MAX_PIXELS + 1) * 2**klov.FIX_BITS
+    klov.hist_plan(1, C, 2**24 - 1, 256, 132)
+    with pytest.raises(ValueError, match="at most 16777215 pixels"):
+        klov.hist_plan(16, C, 2**20 + 4, 256, 132)
+    with pytest.raises(ValueError, match="at most 16384 bins"):
+        klov.hist_plan(1, C, 64, 32768, 132)
 
 
 def _nchw(p, labels):
