@@ -87,7 +87,25 @@ failure:
    and per step K5a launched 3 times, K5b 2, K5c 1, K1 1 and K2 1, with no
    K5 operand copy. Prints
    ms/step, source img/s and peak memory, and the same time with the
-   default discriminator.
+   default discriminator;
+8. loop: a whole training job through the CLI entry point
+   ``cli/train_adversarial.main``: the flagship preset on synthetic train,
+   target and validation sets at its sizes (source 720x1280, target and
+   validation 512x1024), batch 8, 2 epochs of 3 steps, a checkpoint each
+   epoch, validation each epoch, the final int8 evaluation, jsonl logs
+   under build/chip_smoke_loop/; then the same run resumed from its
+   'latest' checkpoint to 3 epochs. Gates: every logged loss finite and
+   ``loss_d`` at step 1 within 0.1 of ln 2; K1 and K2 launched exactly once
+   per optimizer step of each run; K3 exactly 15 times per int8 forward of
+   the final evaluation (its calibration forwards run in float and launch
+   none); the int64 histogram of a validation pass totals the validation
+   set's non-ignored pixels; mIoU in [0, 1]; ``int8_miou`` and
+   ``int8_miou_delta`` in the report; both checkpoint streams written; the
+   resumed run starts at step 3 with G and D bit-equal to the file's and
+   ends at step 9. Prints the loop's ms/step on the device's timeline
+   beside the isolated step's (phase 7, default discriminator, as the loop
+   builds it), the host's wait for each batch, the eval ms per batch, the
+   checkpoint save seconds and the report's latency and FLOPs.
 
 The last two lines are a JSON summary of the kernels and the result line.
 """
@@ -98,7 +116,10 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
+import os
 import re
+import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -1083,7 +1104,157 @@ def phase_adversarial() -> dict:
     want = {"conv4x4s2p1": 3, "conv4x4s2p1_dw": 2, "conv4x4s2p1_dx": 1, "lovasz_hist": 1, "lovasz_bwd": 1}
     if launches != {k: n * TRAIN_STEPS for k, n in want.items()}:
         raise AssertionError(f"expected per step {want} launches, got {launches} over {TRAIN_STEPS} steps")
-    return launches
+    return launches, ms_default
+
+
+LOOP_DIR = os.path.join("build", "chip_smoke_loop")
+
+
+def _loop_argv(*extra) -> list:
+    return ["--preset", "bisenet_adversarial_lovasz", "--train_dataset", "synthetic", "--val_dataset", "synthetic",
+            "--target_dataset", "synthetic", "--batch_size", "8", "--eval_batch_size", "8",
+            "--steps_per_epoch", "3", "--save_checkpoint_freq_epoch", "1", "--log_backend", "jsonl",
+            "--log_dir", os.path.join(LOOP_DIR, "logs"), "--checkpoint_dir", os.path.join(LOOP_DIR, "ckpt"),
+            "--run_name", "loop", *extra]
+
+
+def _loop_run(argv) -> tuple:
+    """One CLI run with the K1/K2/K3 counts set to 0 just before it; the
+    report, the counts and the wall seconds."""
+    from rtda_semanticsegmentation_tpu_torch.cli import train_adversarial
+
+    klov.hist_launches = klov.bwd_launches = 0
+    k3.launches = k3.copies = 0
+    t0 = time.perf_counter()
+    report = train_adversarial.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"lovasz_hist": klov.hist_launches, "lovasz_bwd": klov.bwd_launches, "int8_conv": k3.launches,
+              "int8_conv_copies": k3.copies}
+    return report, counts, seconds
+
+
+def _loop_losses(path: str) -> list:
+    """(step, key, value) of every loss logged in a jsonl file."""
+    out = []
+    for line in open(path):
+        event = json.loads(line)
+        if event["event"] == "metrics":
+            out += [(event["step"], k, v) for k, v in event.items() if "loss" in k]
+    return out
+
+
+def _timings_line(what: str, timings: dict, first: int, steps_per_epoch: int) -> tuple:
+    """Print a run's timings; returns (the median ms/step on the device's
+    timeline from step ``first``, the loop's ms/step). A step's time on the
+    device's timeline runs from its event to the next step's, so it holds
+    any wait of the device for the host within the epoch; the host's wait
+    for an epoch's first batch comes before the epoch's first event, so the
+    loop's ms/step adds those."""
+    steps, waits = timings["step_ms"], timings["loader_wait_ms"]
+    steady = float(np.median(steps[first:]))
+    total = float((sum(steps) + sum(waits[::steps_per_epoch])) / len(steps))
+    print(f"{what}: ms/step on the device timeline " + " ".join(f"{x:.1f}" for x in steps)
+          + f" (median from step {first + 1}: {steady:.3f}); loader wait ms/step "
+          + " ".join(f"{x:.1f}" for x in waits)
+          + f" (mean {np.mean(waits):.3f}); the loop's ms/step with each epoch's first wait {total:.3f}; "
+          "eval ms/batch "
+          + " ".join(f"{x:.2f}" for x in timings["eval_ms_per_batch"])
+          + "; checkpoint save s " + " ".join(f"{x:.3f}" for x in timings["checkpoint_save_s"]))
+    return steady, total
+
+
+def phase_loop(isolated_ms: float) -> None:
+    from rtda_semanticsegmentation_tpu_torch.train.checkpoint import FILENAME, CheckpointManager
+
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    report, counts, seconds = _loop_run(_loop_argv("--epochs", "2", "--final_int8_eval", "--print_freq_batch", "1"))
+    trainer = report["trainer"]
+    cfg = trainer.cfg
+    if (cfg.train_size, cfg.eval_size, cfg.train.batch_size) != (SOURCE_HW, TARGET_HW, 8):
+        raise AssertionError(f"the loop trained {cfg.train_size} / evaluated {cfg.eval_size}")
+    steps = report["global_step"]
+    n_eval = -(-len(trainer.val_ds) // cfg.data.eval_batch_size)
+    print(f"loop: {steps} steps, 2 epochs, {len(trainer.val_ds)} val images in {n_eval} batches, "
+          f"{seconds:.1f} s for the whole run; launches {counts}")
+    print(f"loop report: best mIoU {report['best_miou']:.4f}, int8 mIoU {report.get('int8_miou')}, delta "
+          f"{report.get('int8_miou_delta')}, latency {report['mean_latency_ms']} ± {report['std_latency_ms']} ms "
+          f"(p50 {report['p50_latency_ms']}, {report['mean_fps']} FPS) at batch 1 "
+          f"{cfg.eval_size[0]}x{cfg.eval_size[1]}, FLOPs {report['flops_g']} G, params {report['params_m']} M")
+    steady, total = _timings_line("loop run 1 (train scalars logged each step)", report["timings"], 3,
+                                  trainer.steps_per_epoch)
+    # an epoch's 3 batches are made while its first step waits (prefetch
+    # depth 2 + the step's own), so the later steps run at device speed
+    print(f"loop: {steady:.3f} ms/step on the device timeline (median from step 4, once the epoch's batches "
+          f"are made), {total:.3f} ms/step for the loop with each epoch's first wait, against "
+          f"{isolated_ms:.3f} ms/step for the isolated step (phase 7, default discriminator)")
+
+    ckpt = CheckpointManager(cfg, run_name="loop", device=DEV)
+    files = {w: os.path.join(d, FILENAME) for w, d in (("best", ckpt.best_dir), ("latest", ckpt.latest_dir))}
+    if not all(os.path.isfile(f) for f in files.values()):
+        raise AssertionError(f"a checkpoint stream is missing: {files}")
+    saved = torch.load(files["latest"], map_location=DEV, weights_only=True)
+
+    losses = _loop_losses(os.path.join(LOOP_DIR, "logs", "loop.jsonl"))
+    loss_d1 = [v for s, k, v in losses if s == 1 and k == "train/loss_d"]
+    print(f"loop: loss_d at step 1 {loss_d1}, {len(losses)} logged losses")
+    if not losses or not all(math.isfinite(v) for _, _, v in losses):
+        raise AssertionError(f"a logged loss is not finite: {[x for x in losses if not math.isfinite(x[2])]}")
+    if len(loss_d1) != 1 or abs(loss_d1[0] - math.log(2.0)) > 0.1:
+        raise AssertionError(f"loss_d at step 1 is {loss_d1}, not within 0.1 of ln 2")
+    if steps != 6 or counts["lovasz_hist"] != steps or counts["lovasz_bwd"] != steps:
+        raise AssertionError(f"expected one K1 and one K2 launch per step over 6 steps, got {counts} in {steps}")
+    if counts["int8_conv"] != QUANT_CONVS * n_eval or counts["int8_conv_copies"]:
+        raise AssertionError(f"expected {QUANT_CONVS} K3 launches per int8 forward over {n_eval} batches and no "
+                             f"operand copy, got {counts}")
+    if not ("int8_miou" in report and "int8_miou_delta" in report):
+        raise AssertionError("the report lacks int8_miou / int8_miou_delta")
+
+    val = trainer.validate()
+    pixels = sum(int((trainer.val_ds.load(i)[1] != 255).sum()) for i in range(len(trainer.val_ds)))
+    print(f"loop: a validation pass of the best model: mIoU {val['miou']:.4f}, loss {val['loss']:.4f}, "
+          f"hist {val['hist'].dtype} total {int(val['hist'].sum())} of {pixels} non-ignored pixels, "
+          f"{trainer.timings['eval_ms_per_batch'][-1]:.2f} ms/batch")
+    if val["hist"].dtype != np.int64 or int(val["hist"].sum()) != pixels:
+        raise AssertionError("the validation histogram does not total the non-ignored pixels")
+    if not all(0.0 <= m <= 1.0 for m in (val["miou"], report["best_miou"], report["int8_miou"])):
+        raise AssertionError(f"an mIoU lies outside [0, 1]: {val['miou']}, {report['best_miou']}")
+    del report, trainer, val
+
+    # resume from 'latest' (epoch 1, step 3) to 3 epochs; capture the state
+    # right after the restore
+    restored = {}
+    original = CheckpointManager.restore_into
+
+    def capture(self, state, which="latest"):
+        out = original(self, state, which)
+        if out is not None and not restored:
+            restored.update(step=state.step, g=copy.deepcopy(state.model.state_dict()),
+                            d=copy.deepcopy(state.discriminator.state_dict()))
+        return out
+
+    CheckpointManager.restore_into = capture
+    try:
+        report, counts, seconds = _loop_run(_loop_argv("--epochs", "3", "--resume_checkpoint", "latest", "--no_perf"))
+    finally:
+        CheckpointManager.restore_into = original
+    resumed_steps = report["global_step"] - restored["step"]
+    print(f"loop resumed: from step {restored['step']} to {report['global_step']}, {seconds:.1f} s; "
+          f"launches {counts}")
+    _timings_line("loop run 2 (resumed, train scalars logged every 100 steps)", report["timings"], 3,
+                  report["trainer"].steps_per_epoch)
+    equal = all(torch.equal(restored["g"][k], v) for k, v in saved["generator"].items()) and all(
+        torch.equal(restored["d"][k], v) for k, v in saved["discriminator"].items())
+    if restored["step"] != 3 or report["global_step"] != 9 or not equal:
+        raise AssertionError(f"the resume started at step {restored['step']} (want 3), ended at "
+                             f"{report['global_step']} (want 9), G and D equal to the file's: {equal}")
+    if counts["lovasz_hist"] != resumed_steps or counts["lovasz_bwd"] != resumed_steps:
+        raise AssertionError(f"expected one K1 and one K2 launch per resumed step, got {counts}")
+    losses = _loop_losses(os.path.join(LOOP_DIR, "logs", "loop.jsonl"))
+    if not all(math.isfinite(v) for _, _, v in losses):
+        raise AssertionError("a logged loss of the resumed run is not finite")
+    del report
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
 
 
 def main() -> None:
@@ -1097,7 +1268,8 @@ def main() -> None:
     k3_launches, k4_launches = phase_slice()
     k4_launches += phase_r101()
     train_launches = phase_train()
-    adversarial_launches = phase_adversarial()
+    adversarial_launches, isolated_ms = phase_adversarial()
+    phase_loop(isolated_ms)
     pkg = "rtda_semanticsegmentation_tpu_torch/csrc"
     ref = "rtda_semanticsegmentation_tpu/ops"
     kernels = [{

@@ -63,7 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bisenet_context_path", dest="context_path",
                    choices=("resnet18", "resnet101"), default="resnet18")
     p.add_argument("--checkpoint_dir", default=None,
-                   help="Checkpoint root (not ported yet). Omit to run with random weights.")
+                   help="Checkpoint root written by the port's train CLIs. Omit to run with random weights.")
     p.add_argument("--run_name", default="", help="Run subdirectory under --checkpoint_dir.")
     p.add_argument("--adversarial", action="store_true",
                    help="Checkpoint came from adversarial training.")
@@ -132,6 +132,25 @@ def _write_outputs(args, decoded, chunk, preds, stems, h, w) -> int:
     return written
 
 
+def _restore_variables(args, mcfg: ModelConfig, device) -> dict:
+    """G's eval variables from the ``--restore`` stream of the run under
+    ``--checkpoint_dir`` (``--run_name``, else the model's directory, with
+    the adversarial suffix when ``--adversarial``), on ``device``."""
+    from ..config import AdversarialConfig, ExperimentConfig, TrainConfig
+    from ..train.checkpoint import CheckpointManager
+
+    cfg = ExperimentConfig(model=mcfg, train=TrainConfig(checkpoint_dir=args.checkpoint_dir),
+                           adversarial=AdversarialConfig(enabled=args.adversarial))
+    mgr = CheckpointManager(cfg, run_name=args.run_name, device=device)
+    restored = mgr.restore_variables(which=args.restore)
+    if restored is None:
+        raise FileNotFoundError(f"no '{args.restore}' checkpoint under {mgr.root}")
+    variables, meta = restored
+    print(f"restored {args.restore} checkpoint from {mgr.root} "
+          f"(epoch {meta['epoch']}, best mIoU {meta['best_miou']:.4f})", file=sys.stderr)
+    return variables
+
+
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to the PyTorch package yet")
 
@@ -147,8 +166,6 @@ def main(argv=None) -> int:
 
     if args.artifact:
         raise _not_ported("--artifact (serving artifacts)")
-    if args.checkpoint_dir is not None:
-        raise _not_ported("--checkpoint_dir (checkpoint restore)")
     if args.precision == "int8" and (args.model_name != "bisenet" or args.context_path != "resnet18"):
         what = args.model_name if args.model_name == "deeplabv2" else f"bisenet/{args.context_path}"
         raise _not_ported(f"int8 serving of {what}")
@@ -176,11 +193,14 @@ def main(argv=None) -> int:
           f"({args.precision}, {h}x{w}, batch {args.batch_size}, {device})",
           file=sys.stderr)
 
-    variables = init_model(build_model(mcfg, device), torch.Generator().manual_seed(0))
-    if args.pretrained_backbone:
-        variables = load_npz_into_state(variables, args.pretrained_backbone, mcfg.name)
+    if args.checkpoint_dir is not None:
+        variables = _restore_variables(args, mcfg, device)
     else:
-        print("WARNING: no checkpoint; predicting with random weights", file=sys.stderr)
+        variables = init_model(build_model(mcfg, device), torch.Generator().manual_seed(0))
+        if args.pretrained_backbone:
+            variables = load_npz_into_state(variables, args.pretrained_backbone, mcfg.name)
+        else:
+            print("WARNING: no --checkpoint_dir; predicting with random weights", file=sys.stderr)
 
     def decode(path):
         return decode_resize(path, w, h)

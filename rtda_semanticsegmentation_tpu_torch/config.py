@@ -2,10 +2,14 @@
 
 The fields of the JAX package's ``config.py`` dataclasses that the port
 reads, with the same names and defaults (``tests/test_torch_bisenet.py``
-holds them equal). The port keeps its own copy so that it, and
-``chip_smoke.py`` on a GPU machine, import nothing of the JAX package. The
-port's functions read these configs by attribute, so the JAX package's own
-config objects work as well.
+and ``tests/test_torch_cli.py`` hold them equal). The port keeps its own
+copy so that it, and ``chip_smoke.py`` on a GPU machine, import nothing of
+the JAX package. The port's functions read these configs by attribute, so
+the JAX package's own config objects work as well.
+
+The port has no ``MeshConfig``: it runs on one device (a mesh of more than
+one is ROADMAP queue 1 item 8, multi-GPU). ``ModelConfig.fast_input`` is
+not carried (queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ class ModelConfig:
     quant_min_ch: int = 128
     quant_clip: float = 1.0  # 1.0 = exact per-channel max|x|, < 1 a quantile
     quant_skip: Tuple[str, ...] = ()
+    pretrained_backbone: Optional[str] = None  # converted .npz weights
     disc_ndf: int = 64  # FCDiscriminator base width
 
 
@@ -71,9 +76,38 @@ class AugmentConfig:
 @dataclass(frozen=True)
 class DataConfig:
     train_dataset: str = "gta5"  # gta5 | cityscapes | synthetic
+    val_dataset: str = "cityscapes"
+    gta5_path: str = "./data/GTA5"
+    cityscapes_path: str = "./data/Cityscapes"
+    gta5_labels_subdir: str = "labels_trainids"
+    gta5_convert_on_the_fly: bool = False
     gta5_size: Tuple[int, int] = (720, 1280)  # (H, W)
     cityscapes_size: Tuple[int, int] = (512, 1024)
     train_size_override: Optional[Tuple[int, int]] = None
+    eval_size_override: Optional[Tuple[int, int]] = None
+    # host decode threads; -1 = min(32, cpu_count), 0 = one thread
+    num_workers: int = -1
+    prefetch_batches: int = 2  # batches copied to the device ahead of the step
+    eval_batch_size: int = 8
+    # the adversarial target stream
+    adversarial_source_dataset: str = "gta5"
+    adversarial_target_dataset: str = "cityscapes"
+    adversarial_target_split: str = "train"
+    synthetic_length: int = 64  # samples in the synthetic dataset
+    # the JAX package's native C++ decode and decoded-sample disk cache are
+    # not ported: 'auto' and 'off' decode with PIL, 'on' raises, and so does
+    # a decoded_cache_dir
+    native_decode: str = "auto"
+    decoded_cache_dir: Optional[str] = None
+
+    def resolved_num_workers(self) -> int:
+        if self.num_workers > 0:
+            return self.num_workers
+        if self.num_workers == 0:
+            return 1
+        import os
+
+        return min(32, os.cpu_count() or 1)
 
 
 @dataclass(frozen=True)
@@ -86,6 +120,10 @@ class OptimizerConfig:
     adam_b2: float = 0.999
     poly_power: float = 0.9
 
+    @staticmethod
+    def default_lr(name: str) -> float:
+        return {"sgd": 2.5e-4, "adam": 1e-4}[name]
+
 
 @dataclass(frozen=True)
 class AdversarialConfig:
@@ -97,6 +135,8 @@ class AdversarialConfig:
     # block-mean the logits by this factor before the softmax D sees; 1 = the
     # full-resolution maps of the reference
     disc_downsample: int = 1
+    # warm-start D from a converted .npz (its optimizer state starts fresh)
+    pretrained_discriminator: Optional[str] = None
     disc_optimizer: str = "adam"  # adam | sgd (momentum 0.9)
     disc_learning_rate: float = 2.5e-5
     disc_adam_b1: float = 0.9
@@ -117,16 +157,44 @@ class LossConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
+    seed: int = 42
+    epochs: int = 50
     batch_size: int = 8
+    checkpoint_dir: str = "./checkpoints"
+    best_checkpoint_name: str = "best_miou"
+    periodic_checkpoint_name: str = "latest"
+    save_checkpoint_freq_epoch: int = 5
+    resume_checkpoint: Optional[str] = None  # latest | best | a path
+    validate_freq_epoch: int = 1
+    print_freq_batch: int = 100
+    log_images_freq_epoch: int = 10
+    latency_iterations: int = 100
+    warmup_iterations: int = 10
     remat: bool = False  # not ported: True raises in make_train_step
+    # run each loaded batch through N optimizer steps (fresh augmentation
+    # draws each); echoed steps count toward steps_per_epoch and the poly LR
+    data_echo: int = 1
+    steps_per_epoch: Optional[int] = None  # None: from the dataset's length
+    # evaluate the best model through the int8 PTQ path at the end of the run
+    final_int8_eval: bool = False
+    # a torch.profiler trace of N train steps after 3 warm ones; 0 = off
+    profile_steps: int = 0
+    # raise NonFiniteLossError when a logged train metric is NaN/Inf
+    halt_on_nonfinite: bool = True
 
 
 @dataclass(frozen=True)
 class ObservabilityConfig:
-    # per-module parameter and gradient L2 norms in the step's metrics
-    # (``watch/...``) when > 0; the train loop that would surface them every
-    # N steps is not ported yet
+    backend: str = "auto"  # auto | wandb | jsonl | null
+    project: str = "RTDA-SemSeg"
+    entity: str = "RTDA-SemSeg"
+    run_name: Optional[str] = None
+    log_dir: str = "./logs"
+    # per-module parameter and gradient L2 norms (``watch/...``) computed
+    # by the step and logged every N steps; 0 = off
     watch_freq_steps: int = 0
+    # mirror saved checkpoints to the W&B run (an 'artifact' event in jsonl)
+    upload_checkpoints: bool = False
 
 
 @dataclass(frozen=True)
@@ -155,8 +223,15 @@ class ExperimentConfig:
             return self.data.cityscapes_size
         return self.data.gta5_size
 
+    @property
+    def eval_size(self) -> Tuple[int, int]:
+        return self.data.eval_size_override or self.data.cityscapes_size
+
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
 
 
 def get_preset(name: str) -> ExperimentConfig:
@@ -166,7 +241,8 @@ def get_preset(name: str) -> ExperimentConfig:
     base = ExperimentConfig()
     if name == "bisenet_source_small":
         return base.replace(
-            data=dataclasses.replace(base.data, gta5_size=(256, 512), cityscapes_size=(256, 512)),
+            data=dataclasses.replace(base.data, gta5_size=(256, 512), cityscapes_size=(256, 512),
+                                     eval_batch_size=2),
             augment=dataclasses.replace(base.augment, pipeline="no_new_aug"),
             train=dataclasses.replace(base.train, batch_size=2),
         )
@@ -190,4 +266,13 @@ def get_preset(name: str) -> ExperimentConfig:
             optimizer=dataclasses.replace(base.optimizer, name="sgd", learning_rate=2.5e-4),
             augment=dataclasses.replace(base.augment, pipeline="no_new_aug"),
         )
-    raise ValueError(f"Unknown preset {name!r}")
+    raise ValueError(f"Unknown preset {name!r}. Presets: {', '.join(PRESETS)}")
+
+
+PRESETS = (
+    "bisenet_source_small",
+    "bisenet_source_aug",
+    "deeplabv2_cityscapes",
+    "bisenet_adversarial",
+    "bisenet_adversarial_lovasz",
+)

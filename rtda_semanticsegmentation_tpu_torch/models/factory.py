@@ -104,6 +104,16 @@ def init_discriminator(model: torch.nn.Module, generator: torch.Generator) -> Di
     return model.state_dict()
 
 
+# BiSeNet's aux supervision heads: in the train tree only
+AUX_HEADS = ("supervision1", "supervision2")
+
+
+def eval_variables(state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A train model's variables without the aux heads, as an eval model
+    (``build_model(..., train=False)``) takes them."""
+    return {k: v for k, v in state.items() if k.split(".", 1)[0] not in AUX_HEADS}
+
+
 def _is_quant(key: str) -> bool:
     return key.rsplit(".", 1)[-1] in QUANT_STATS + QUANT_FROZEN
 

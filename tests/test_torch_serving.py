@@ -120,8 +120,14 @@ def test_predict_int8_overlay_model_size(image_dir, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--checkpoint_dir", "ckpt"], ["--artifact", "art"]])
 def test_predict_unported_sources_raise(image_dir, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        predict_main(["--images", str(image_dir), "--output", str(tmp_path / "o"), "--device", "cpu", *flag])
+    """``--artifact`` is not ported and raises so; ``--checkpoint_dir`` is
+    ported (``tests/test_torch_cli.py`` predicts from a trained checkpoint)
+    and raises only when the directory holds no checkpoint."""
+    error, match = ((FileNotFoundError, "no 'best' checkpoint") if flag[0] == "--checkpoint_dir"
+                    else (NotImplementedError, "not ported"))
+    with pytest.raises(error, match=match):
+        predict_main(["--images", str(image_dir), "--output", str(tmp_path / "o"), "--device", "cpu",
+                      *[str(tmp_path / v) if v == "ckpt" else v for v in flag]])
 
 
 def _flags(parser):
@@ -164,6 +170,18 @@ PORT_ENTRY_MODULES = (
     "rtda_semanticsegmentation_tpu_torch.ops.losses",
     "rtda_semanticsegmentation_tpu_torch.ops.augment",
     "rtda_semanticsegmentation_tpu_torch.train.steps",
+    "rtda_semanticsegmentation_tpu_torch.ops.metrics",
+    "rtda_semanticsegmentation_tpu_torch.data.datasets",
+    "rtda_semanticsegmentation_tpu_torch.data.loader",
+    "rtda_semanticsegmentation_tpu_torch.train.evaluate",
+    "rtda_semanticsegmentation_tpu_torch.train.checkpoint",
+    "rtda_semanticsegmentation_tpu_torch.train.loop",
+    "rtda_semanticsegmentation_tpu_torch.obs.logging",
+    "rtda_semanticsegmentation_tpu_torch.obs.profiler",
+    "rtda_semanticsegmentation_tpu_torch.obs.summary",
+    "rtda_semanticsegmentation_tpu_torch.cli.common",
+    "rtda_semanticsegmentation_tpu_torch.cli.train",
+    "rtda_semanticsegmentation_tpu_torch.cli.train_adversarial",
     "chip_smoke",
     "profile_serve",
     "profile_train",
@@ -171,11 +189,13 @@ PORT_ENTRY_MODULES = (
 )
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
     """After each import of the port's modules and scripts, after the
-    adversarial train step and its fused discriminator are built, and after
-    DeepLabV2 is built with its 3x3 convs on K4, no jax, jaxlib, flax or
-    optax module and nothing of the JAX package is loaded."""
+    adversarial train step and its fused discriminator are built, after
+    DeepLabV2 is built with its 3x3 convs on K4, and after a 1-epoch, 2-step
+    ``run_experiment`` on the CPU (synthetic data, validation, checkpoints,
+    the report), no jax, jaxlib, flax or optax module and nothing of the JAX
+    package is loaded."""
     code = (
         "import importlib, sys\n"
         "def check(what):\n"
@@ -197,6 +217,23 @@ def test_port_imports_no_jax():
         "from rtda_semanticsegmentation_tpu_torch.models.factory import build_model\n"
         "build_model(ModelConfig(name='deeplabv2'), device='cpu', fused_conv3=True)\n"
         "check('DeepLabV2 with K4')\n"
+        "import dataclasses as dc\n"
+        "from rtda_semanticsegmentation_tpu_torch.train.loop import run_experiment\n"
+        "cfg = get_preset('bisenet_source_small')\n"
+        f"root = {str(tmp_path)!r}\n"
+        "cfg = cfg.replace(\n"
+        "    data=dc.replace(cfg.data, train_dataset='synthetic', val_dataset='synthetic',\n"
+        "                    train_size_override=(32, 32), eval_size_override=(32, 32),\n"
+        "                    synthetic_length=4, num_workers=1),\n"
+        "    model=dc.replace(cfg.model, compute_dtype='float32'),\n"
+        "    train=dc.replace(cfg.train, epochs=1, steps_per_epoch=2, checkpoint_dir=root + '/ckpt'),\n"
+        "    obs=dc.replace(cfg.obs, backend='jsonl', log_dir=root + '/logs'))\n"
+        "report = run_experiment(cfg, run_name='nojax', measure_performance=False, verbose=False,\n"
+        "                        device='cpu')\n"
+        "assert report['global_step'] == 2, report['global_step']\n"
+        "check('run_experiment')\n"
+        "import shutil\n"
+        "shutil.rmtree(root + '/ckpt')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
