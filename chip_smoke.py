@@ -106,6 +106,38 @@ failure:
    beside the isolated step's (phase 7, default discriminator, as the loop
    builds it), the host's wait for each batch, the eval ms per batch, the
    checkpoint save seconds and the report's latency and FLOPs.
+9. r101_int8 (run after phase 5): BiSeNet-R101 and DeepLabV2 with seeded
+   random weights, calibrated on 2 batches of 8 frames and frozen, serve 4
+   requests of 8 frames at 512x1024 in int8. Gates: exactly 97 and 95 K3
+   launches per request (one per quantized conv; DeepLabV2's include 23 at
+   dilation 2 and 3 at dilation 4) and no operand copy; valid masks, finite
+   logits; masks >= 0.999 equal to those with K3 swapped for its plain
+   version (2 requests); DeepLabV2's first K3 launch at d = 2 and at d = 4
+   of a request bit-identical to the plain version on the same operands;
+   the non-frozen ``int8`` model's masks equal to the frozen one's. Prints
+   ms/request, img/s and peak memory, then K3 at every shape of a request
+   (bit-identical bf16 and s8 outputs, timed as in phase 3) and its sum
+   per forward;
+10. deeplab_train (run after phase 7): the ``deeplabv2_cityscapes`` step
+   (DeepLabV2, bf16, SGD, batch 8 at 512x1024, BatchNorm affines frozen).
+   An f32 step at 2x64x96 on the card matches the CPU's (TF32 off, losses
+   within 1e-4, grad norm within 1e-2 relative); from one state, a step
+   with ``train.remat`` and one without give the same loss and running
+   statistics, bit for bit (each with its peak memory and a second step's
+   time); then 8 steps on one repeated batch: losses finite and falling,
+   every BatchNorm affine bit-identical to its init, every running
+   statistic moved. Prints ms/step, img/s and peak memory. BiSeNet-R101's
+   vanilla step (``bisenet_source_aug`` on a ResNet-101 context path, b8
+   512x1024) runs from its init twice, the second run timed;
+11. deeplab loop (run after phase 8): ``cli/train.main`` with
+   ``--preset deeplabv2_cityscapes`` on synthetic train and validation
+   sets at 512x1024, batch 8, 1 epoch of 2 steps, validation in 2 batches
+   of 32, the 'best' checkpoint, the final int8 evaluation. Gates: finite
+   losses, the checkpoint, the BatchNorm affines at their init,
+   ``int8_miou`` in [0, 1], K3 exactly 95 times per int8 batch with no
+   operand copy. K3's count in the kernels line adds these launches and
+   phase 8's to phases 4 and 9's; its times are the sums per forward of
+   R18, BiSeNet-R101 and DeepLabV2.
 
 The last two lines are a JSON summary of the kernels and the result line.
 """
@@ -138,12 +170,13 @@ from rtda_semanticsegmentation_tpu_torch.models.factory import (
     build_model,
     init_discriminator,
     init_model,
+    load_variables,
 )
-from rtda_semanticsegmentation_tpu_torch.models.quantize import calibrate, freeze
+from rtda_semanticsegmentation_tpu_torch.models.quantize import calibrate, freeze, quantized_model
 from rtda_semanticsegmentation_tpu_torch.ops.augment import normalize_u8
 from rtda_semanticsegmentation_tpu_torch.ops.losses import _binned_lovasz_forward, lovasz_softmax_binned
 from rtda_semanticsegmentation_tpu_torch.serving import make_serving_fn
-from rtda_semanticsegmentation_tpu_torch.train.optim import build_discriminator_tx, build_generator_tx
+from rtda_semanticsegmentation_tpu_torch.train.optim import build_discriminator_tx, build_generator_tx, is_bn_affine
 from rtda_semanticsegmentation_tpu_torch.train.schedule import poly_lr_schedule
 from rtda_semanticsegmentation_tpu_torch.train.state import TrainState
 from rtda_semanticsegmentation_tpu_torch.train.steps import make_train_step
@@ -196,6 +229,14 @@ CONV3_SHAPES = (
     ("deeplab layer4 3x3 d4", 512, 512, 65, 129, 4, {"deeplabv2": 3}),
 )
 K4_CONVS = {"r18": 14, "r101": 31, "deeplabv2": 33}
+# the int8 serve phase of the R101 models: (name, key, ModelConfig fields),
+# and K3's launches per request, one per QuantConv (a ConvBN whose input has
+# at least quant_min_ch = 128 channels): BiSeNet-R101's trunk 95 plus its
+# spatial path's convblock3 and FFM, DeepLabV2's trunk 95 (23 at d = 2 and
+# 3 at d = 4)
+R101_MODELS = (("BiSeNet-R101", "r101", dict(context_path="resnet101")),
+               ("DeepLabV2", "deeplabv2", dict(name="deeplabv2")))
+R101_QUANT_CONVS = {"r101": 97, "deeplabv2": 95}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -291,57 +332,74 @@ def _conv_case(i, cin, cout, h, w, k):
     return xq, wq, a, b, inv
 
 
-def phase_kernels() -> dict:
-    total_ms = total_stream_ms = total_plain_ms = total_bound = 0.0
-    by_ops = by_bytes = 0.0
-    max_err = 0.0
-    for i, (where, cin, cout, h, w, k, s, p, count) in enumerate(SHAPES):
-        xq, wq, a, b, inv = _conv_case(i, cin, cout, h, w, k)
-        # the model's operands: the K-major weights made once (QuantConv.fold)
-        plain_kw = dict(stride=s, padding=p)
-        kw = dict(plain_kw, kmajor=k3.kmajor_weights(wq))
-        out = k3.int8_conv(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **kw)
-        ref = k3.int8_conv_plain(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **plain_kw)
-        codes = k3.int8_conv(xq, wq, a, b, inv, relu=True, **kw)
-        codes_ref = k3.int8_conv_plain(xq, wq, a, b, inv, relu=True, **plain_kw)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        code_err = (codes.int() - codes_ref.int()).abs().max().item()
-        if not torch.equal(out, ref) or not torch.equal(codes, codes_ref):
-            raise AssertionError(
-                f"{where}: kernel differs from its plain version "
-                f"(bf16 max |diff| {err}, s8 codes max |diff| {code_err})"
-            )
-        max_err = max(max_err, err, float(code_err))
-        ms = graph_ms(lambda: k3.int8_conv(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **kw))
-        stream_ms = cuda_ms(lambda: k3.int8_conv(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **kw), 20)
-        us = host_us(lambda: k3.int8_conv(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **kw))
-        plain_ms = cuda_ms(
-            lambda: k3.int8_conv_plain(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **plain_kw), 5, 1
+def _k3_shape(i, where, cin, cout, h, w, k, s, p, d=1, count=1) -> dict:
+    """K3 at one conv shape (batch 8) on seeded operands: its bf16 output and
+    its requantized s8 codes bit-identical to the plain version's; its
+    time (graph replay, back to back, host per launch), the plain
+    version's and the bound."""
+    xq, wq, a, b, inv = _conv_case(i, cin, cout, h, w, k)
+    # the model's operands: the K-major weights made once (QuantConv.fold)
+    plain_kw = dict(stride=s, padding=p, dilation=d)
+    kw = dict(plain_kw, kmajor=k3.kmajor_weights(wq))
+    out = k3.int8_conv(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **kw)
+    ref = k3.int8_conv_plain(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **plain_kw)
+    codes = k3.int8_conv(xq, wq, a, b, inv, relu=True, **kw)
+    codes_ref = k3.int8_conv_plain(xq, wq, a, b, inv, relu=True, **plain_kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    code_err = (codes.int() - codes_ref.int()).abs().max().item()
+    if not torch.equal(out, ref) or not torch.equal(codes, codes_ref):
+        raise AssertionError(
+            f"{where}: kernel differs from its plain version "
+            f"(bf16 max |diff| {err}, s8 codes max |diff| {code_err})"
         )
-        ho, wo = out.shape[1], out.shape[2]
-        ops = 2.0 * BATCH * ho * wo * cout * k * k * cin
-        # s8 input and weights, f32 a and b read once; bf16 output written once
-        nbytes = BATCH * h * w * cin + k * k * cin * cout + 8 * cout + 2 * BATCH * ho * wo * cout
-        bound, by = bound_ms(nbytes, ops)
-        tops = ops / (ms * 1e-3) / 1e12
-        print(f"kernel {where} {cin}->{cout} @{h}x{w} b{BATCH}: bit-identical (bf16 and s8); "
-              f"kernel {ms:.4f} ms ({tops:.1f} TOP/s, {bound / ms:.3f} of the bound; {stream_ms:.4f} ms launched "
-              f"back to back), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), host {us:.1f} us per launch, "
-              f"x{count} per forward")
-        total_ms += count * ms
-        total_stream_ms += count * stream_ms
-        total_plain_ms += count * plain_ms
-        total_bound += count * bound
-        by_ops += count * (bound if by == "operations" else 0.0)
-        by_bytes += count * (bound if by == "bytes" else 0.0)
-    print(f"kernel total over one forward's {QUANT_CONVS} quantized convs: "
-          f"{total_ms:.4f} ms kernel ({total_stream_ms:.4f} ms launched back to back), "
-          f"{total_plain_ms:.4f} ms plain, {total_bound:.4f} ms bound")
+    ms = graph_ms(lambda: k3.int8_conv(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **kw))
+    stream_ms = cuda_ms(lambda: k3.int8_conv(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **kw), 20)
+    us = host_us(lambda: k3.int8_conv(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **kw))
+    plain_ms = cuda_ms(
+        lambda: k3.int8_conv_plain(xq, wq, a, b, relu=False, out_dtype=torch.bfloat16, **plain_kw), 5, 1
+    )
+    ho, wo = out.shape[1], out.shape[2]
+    ops = 2.0 * BATCH * ho * wo * cout * k * k * cin
+    # s8 input and weights, f32 a and b read once; bf16 output written once
+    nbytes = BATCH * h * w * cin + k * k * cin * cout + 8 * cout + 2 * BATCH * ho * wo * cout
+    bound, by = bound_ms(nbytes, ops)
+    tops = ops / (ms * 1e-3) / 1e12
+    print(f"kernel {where} {cin}->{cout} @{h}x{w} d{d} b{BATCH}: bit-identical (bf16 and s8); "
+          f"kernel {ms:.4f} ms ({tops:.1f} TOP/s, {bound / ms:.3f} of the bound; {stream_ms:.4f} ms launched "
+          f"back to back), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), host {us:.1f} us per launch, "
+          f"x{count} per forward")
+    return {"ms": ms, "stream_ms": stream_ms, "plain_ms": plain_ms, "bound_ms": bound, "by": by,
+            "err": max(err, float(code_err)), "count": count, "ops": ops, "bytes": nbytes,
+            "in_elems": BATCH * h * w * cin}
+
+
+def _k3_forward(what: str, shapes) -> dict:
+    """K3 at every (where, cin, cout, h, w, k, s, p, d, count) of one
+    forward, summed per forward (``count`` convs of each shape)."""
+    rows = [_k3_shape(i, *shape) for i, shape in enumerate(shapes)]
+    total = {key: sum(r["count"] * r[key] for r in rows)
+             for key in ("ms", "stream_ms", "plain_ms", "bound_ms", "ops", "bytes", "in_elems")}
+    by = {kind: sum(r["count"] * r["bound_ms"] for r in rows if r["by"] == kind) for kind in ("bytes", "operations")}
+    convs = sum(r["count"] for r in rows)
+    print(f"kernel total over one {what} forward's {convs} quantized convs: "
+          f"{total['ms']:.4f} ms kernel ({total['stream_ms']:.4f} ms launched back to back, "
+          f"{total['bound_ms'] / total['ms']:.3f} of the bound), {total['plain_ms']:.4f} ms plain, "
+          f"{total['bound_ms']:.4f} ms bound; {total['ops'] / 1e12:.3f} TOP, {total['bytes'] / 1e9:.3f} GB, "
+          f"{total['in_elems'] / 1e9:.3f} G input elements (the activation quantizer's)")
     # no PyTorch call computes an s8 convolution on CUDA: no library time
-    return {"ms": total_ms, "plain_ms": total_plain_ms, "max_abs_err": max_err,
-            "bound_ms": total_bound, "bound_by": "operations" if by_ops >= by_bytes else "bytes",
-            "library_ms": None}
+    return {"ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "max_abs_err": max(r["err"] for r in rows), "library_ms": None,
+            "by": by, "convs": convs}
+
+
+def phase_kernels() -> dict:
+    """K3 at every quantized conv shape of BiSeNet-R18 (``SHAPES``)."""
+    out = _k3_forward("BiSeNet-R18", [(where, cin, cout, h, w, k, s, p, 1, count)
+                                      for where, cin, cout, h, w, k, s, p, count in SHAPES])
+    if out["convs"] != QUANT_CONVS:
+        raise AssertionError(f"SHAPES holds {out['convs']} convs, not {QUANT_CONVS}")
+    return out
 
 
 LOVASZ_DISTRIBUTIONS = ("spread", "uniform", "one-hot")
@@ -811,6 +869,17 @@ def _k4_serving(what, cfg, variables, requests, convs: int) -> int:
     return launches
 
 
+@contextlib.contextmanager
+def k3_plain():
+    """K3 swapped for its plain version, which needs no K-major weights."""
+    kernel = k3.int8_conv
+    k3.int8_conv = lambda *args, kmajor=None, **kw: k3.int8_conv_plain(*args, **kw)
+    try:
+        yield
+    finally:
+        k3.int8_conv = kernel
+
+
 def phase_slice() -> tuple:
     aug = AugmentConfig()
     cfg = ModelConfig(compute_dtype="bfloat16")
@@ -846,14 +915,8 @@ def phase_slice() -> tuple:
         if not bool(torch.isfinite(lg).all()):
             raise AssertionError(f"{what}: non-finite logits")
 
-    # the same int8 model with the kernel swapped for its plain version,
-    # which needs no K-major weights
-    kernel = k3.int8_conv
-    k3.int8_conv = lambda *args, kmajor=None, **kw: k3.int8_conv_plain(*args, **kw)
-    try:
+    with k3_plain():
         masks_plain = [serve_int8(x) for x in requests]
-    finally:
-        k3.int8_conv = kernel
     agree_plain = float(np.mean([(a == b).float().mean().item() for a, b in zip(masks_int8, masks_plain)]))
     agree_bf16 = float(np.mean([(a == b).float().mean().item() for a, b in zip(masks_int8, masks_bf16)]))
     print(f"int8 masks vs the plain-version int8 masks: agreement {agree_plain:.6f}")
@@ -888,6 +951,121 @@ def phase_r101() -> int:
     return launches
 
 
+@contextlib.contextmanager
+def _dilated_launches_checked():
+    """K3's first launch at each dilation above 1, held bit-exact against
+    its plain version on the same operands. Yields {dilation: the launch's
+    (input shape, weight shape)}."""
+    kernel = k3.int8_conv
+    checked = {}
+
+    def checked_call(*args, kmajor=None, **kw):
+        out = kernel(*args, kmajor=kmajor, **kw)
+        d = kw["dilation"]
+        if d > 1 and d not in checked:
+            want = k3.int8_conv_plain(*args, **kw)
+            if not torch.equal(out, want):
+                raise AssertionError(f"K3 at dilation {d} {tuple(args[0].shape)} differs from its plain version")
+            checked[d] = (tuple(args[0].shape), tuple(args[1].shape))
+        return out
+
+    k3.int8_conv = checked_call
+    try:
+        yield checked
+    finally:
+        k3.int8_conv = kernel
+
+
+def _k3_census(serve, request) -> list:
+    """The shapes of K3's launches in one request, as ``_k3_forward`` takes
+    them, each with its count."""
+    kernel = k3.int8_conv
+    seen = {}
+
+    def recording(xq, wq, *args, stride, padding, dilation=1, **kw):
+        key = (xq.shape[3], wq.shape[3], xq.shape[1], xq.shape[2], wq.shape[0], stride, padding, dilation)
+        seen[key] = seen.get(key, 0) + 1
+        return kernel(xq, wq, *args, stride=stride, padding=padding, dilation=dilation, **kw)
+
+    k3.int8_conv = recording
+    try:
+        serve(request)
+    finally:
+        k3.int8_conv = kernel
+    return [(f"{k}x{k}/s{s}", cin, cout, h, w, k, s, p, d, n)
+            for (cin, cout, h, w, k, s, p, d), n in sorted(seen.items())]
+
+
+def phase_r101_int8() -> tuple:
+    """BiSeNet-R101 and DeepLabV2 served in int8 at b8 512x1024: calibrated
+    on 2 batches and frozen; exactly one K3 launch per quantized conv of a
+    request and no operand copy; masks >= 0.999 equal to those with K3
+    swapped for its plain version; DeepLabV2's first launch at d = 2 and at
+    d = 4 bit-exact against the plain version; the non-frozen ``int8``
+    model's masks equal to the frozen one's. Then K3 at each of the
+    request's shapes. Returns (the K3 launches of both models' requests,
+    {model: K3 per forward})."""
+    aug = AugmentConfig()
+    requests = [_frames(300 + r) for r in range(REQUESTS)]
+    calib = [normalize_u8(_frames(s), aug) for s in (1, 2)]
+    launches, times = 0, {}
+    for what, key, fields in R101_MODELS:
+        cfg = ModelConfig(compute_dtype="bfloat16", **fields)
+        variables = init_model(build_model(cfg, device="cpu"), torch.Generator().manual_seed(0))
+        variables = {k: v.to(DEV) for k, v in variables.items()}
+        t0 = time.perf_counter()
+        calibrated = calibrate(cfg, variables, calib, device=DEV)
+        frozen = freeze(cfg, calibrated)
+        torch.cuda.synchronize()
+        print(f"{what} calibrate (2 x {BATCH} frames) + freeze: {time.perf_counter() - t0:.2f} s")
+        serve = make_serving_fn(cfg, aug, frozen, "int8", device=DEV)
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: K3's launches during the int8 requests only
+        k3.launches = k3.copies = 0
+        masks = [serve(x) for x in requests]
+        torch.cuda.synchronize()
+        n, copies = k3.launches, k3.copies
+        launches += n
+        want = R101_QUANT_CONVS[key] * REQUESTS
+        print(f"{what} int8 serving: {n} K3 launches over {REQUESTS} requests, {copies} operand copies")
+        if n != want or copies:
+            raise AssertionError(f"{what}: expected {want} K3 launches and no operand copy, got {n}, {copies}")
+        for m in masks:
+            _check_masks(m, what)
+        if not bool(torch.isfinite(serve.logits(requests[0])).all()):
+            raise AssertionError(f"{what}: non-finite int8 logits")
+        with k3_plain():
+            masks_plain = [serve(x) for x in requests[:2]]
+        agree = float(np.mean([(a == b).float().mean().item() for a, b in zip(masks, masks_plain)]))
+        print(f"{what} int8 masks vs the plain-version int8 masks (2 requests): agreement {agree:.6f}")
+        if agree < 0.999:
+            raise AssertionError(f"{what}: the int8 kernel path agrees with its plain version on only {agree:.6f}")
+        if key == "deeplabv2":
+            with _dilated_launches_checked() as checked:
+                serve(requests[0])
+            print(f"{what}: K3's first launches at dilation 2 and 4 bit-identical to the plain version: {checked}")
+            if sorted(checked) != [2, 4]:
+                raise AssertionError(f"{what}: checked dilated launches {sorted(checked)}, expected [2, 4]")
+        live = quantized_model(cfg, frozen=False, device=DEV)
+        load_variables(live, calibrated)
+        with torch.inference_mode():
+            masks_live = live(normalize_u8(requests[0], aug).to(torch.bfloat16).permute(0, 3, 1, 2)).argmax(1)
+        same = (masks_live.to(torch.uint8) == masks[0]).float().mean().item()
+        print(f"{what}: non-frozen int8 masks vs frozen: agreement {same:.6f}")
+        if same != 1.0:
+            raise AssertionError(f"{what}: the non-frozen int8 model's masks differ from the frozen model's")
+        del live, masks_live
+        ms = cuda_ms(lambda: serve(requests[0]), 10)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"serve {what} int8 b{BATCH} {H}x{W}: {ms:.3f} ms/request, {BATCH * 1e3 / ms:.1f} img/s, "
+              f"peak device memory {peak:.2f} GiB")
+        times[key] = _k3_forward(what, _k3_census(serve, requests[0]))
+        if times[key]["convs"] != R101_QUANT_CONVS[key]:
+            raise AssertionError(f"{what}: the census counts {times[key]['convs']} convs a request")
+        del serve, variables, calibrated, frozen
+    return launches, times
+
+
 def _train_batch(b: int, h: int, w: int, seed: int, device) -> dict:
     """Synthetic uint8 frames and structured labels: classes in 64x128
     blocks (32x48 at small sizes), ~10% ignore, each frame the block
@@ -905,11 +1083,13 @@ def _train_batch(b: int, h: int, w: int, seed: int, device) -> dict:
 
 def _train_setup(cfg, device, fused_conv1: bool = False):
     """A seeded G (and, in the adversarial modes, D) with their optimizers
-    and schedules, and the step."""
+    and schedules, and the step. DeepLabV2's optimizer freezes its
+    BatchNorm affines, as the train loop builds it."""
     model = build_model(cfg.model, device=device, train=True)
     init_model(model, torch.Generator().manual_seed(0))
     sched = poly_lr_schedule(cfg.optimizer.learning_rate, MAX_ITER, cfg.optimizer.poly_power)
-    state = TrainState(model, build_generator_tx(cfg.optimizer, model, decay_exempt=EXEMPT), sched)
+    tx = build_generator_tx(cfg.optimizer, model, freeze_bn=cfg.model.name == "deeplabv2", decay_exempt=EXEMPT)
+    state = TrainState(model, tx, sched)
     if not cfg.adversarial.enabled:
         return state, make_train_step(cfg, sched)
     disc = build_discriminator(cfg.model, device=device, fused_conv1=fused_conv1)
@@ -984,8 +1164,9 @@ def _card_vs_cpu_f32_step(cfg) -> None:
     tols = {"loss": 1e-4, "loss_ce": 1e-4, "loss_lovasz": 1e-4, "grad_norm": 1e-2}
     if adversarial:
         tols.update({"loss_d": 1e-4, "loss_adv_g": 1e-4, "grad_norm_d": 1e-2})
+    tols = {k: tol for k, tol in tols.items() if k in cpu}
     errs = {k: _rel(card[k], cpu[k]) for k in tols}
-    print(f"f32 {cfg.train_mode} step, card vs CPU at 2x64x96: " + ", ".join(
+    print(f"f32 {cfg.model.name} {cfg.train_mode} step, card vs CPU at 2x64x96: " + ", ".join(
         f"{k} {card[k]:.6f} vs {cpu[k]:.6f} (rel {errs[k]:.1e})" for k in errs))
     if any(errs[k] > tol for k, tol in tols.items()):
         raise AssertionError("the f32 train step on the card disagrees with the CPU's")
@@ -1107,6 +1288,113 @@ def phase_adversarial() -> dict:
     return launches, ms_default
 
 
+def _running_stats(model) -> dict:
+    return {k: v.clone() for k, v in model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+
+
+def _bn_affines(model) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters() if is_bn_affine(n)}
+
+
+def phase_deeplab_train() -> None:
+    """The ``deeplabv2_cityscapes`` step (DeepLabV2, bf16, SGD, batch 8 at
+    512x1024, the BatchNorm affines frozen): an f32 step at 2x64x96 on the
+    card against the CPU's; from one state a step with ``train.remat`` and
+    one without (the same loss and running statistics, bit for bit, each
+    step's peak memory); then 8 steps on one repeated batch from the init:
+    losses finite and falling, every BatchNorm affine bit-identical to its
+    init, every running statistic moved. BiSeNet-R101's vanilla step at the
+    same size, once after one warm-up step."""
+    cfg = get_preset("deeplabv2_cityscapes")
+    h, w = cfg.train_size
+    b = cfg.train.batch_size
+    _card_vs_cpu_f32_step(cfg)
+
+    batch = _train_batch(b, h, w, 41, DEV)
+    state, _ = _train_setup(cfg, DEV)
+    saved = (copy.deepcopy(state.model.state_dict()), copy.deepcopy(state.optimizer.state_dict()))
+    results = {}
+    for remat in (False, True):
+        state.model.load_state_dict(saved[0])
+        state.optimizer.load_state_dict(saved[1])
+        state.step = 0
+        step = make_train_step(cfg.replace(train=dataclasses.replace(cfg.train, remat=remat)), state.schedule)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=DEV)
+        _, m = step(state, batch, gen)
+        first = (float(m["loss"]), _running_stats(state.model))
+        # a second step, timed
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, batch, gen)
+        end.record()
+        torch.cuda.synchronize()
+        results[remat] = (*first, torch.cuda.max_memory_allocated() / 2**30, start.elapsed_time(end))
+    (loss_off, stats_off, peak_off, ms_off), (loss_on, stats_on, peak_on, ms_on) = results[False], results[True]
+    diff = max((stats_on[k] - v).abs().max().item() for k, v in stats_off.items())
+    print(f"deeplabv2 step b{b} {h}x{w} bf16 from one state: without remat loss {loss_off:.6f}, peak device memory "
+          f"{peak_off:.2f} GiB, second step {ms_off:.1f} ms; with train.remat loss {loss_on:.6f}, peak "
+          f"{peak_on:.2f} GiB, second step {ms_on:.1f} ms; running statistics after the first step max |diff| "
+          f"{diff:.3e}")
+    if loss_on != loss_off or diff != 0.0:
+        raise AssertionError("the step with train.remat differs from the one without (loss or running statistics)")
+    del state, saved, stats_off, stats_on
+
+    state, step = _train_setup(cfg, DEV)  # the 8 steps start from the init
+    affines, stats = _bn_affines(state.model), _running_stats(state.model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, ms = _timed_steps(state, step, batch, torch.Generator(device=DEV).manual_seed(7), TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    print(f"deeplabv2 {cfg.train_mode} b{b} {h}x{w} bf16: losses " + " ".join(f"{x:.4f}" for x in losses))
+    print(f"deeplabv2 train: {ms:.3f} ms/step, {b * 1e3 / ms:.1f} img/s (CUDA events over "
+          f"{TRAIN_STEPS - WARMUP_STEPS} steps after {WARMUP_STEPS} warm-up), peak device memory {peak:.2f} GiB")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite deeplabv2 loss: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"the deeplabv2 loss on a repeated batch did not fall: {losses}")
+    after = _bn_affines(state.model)
+    frozen = all(torch.equal(after[n], v) for n, v in affines.items())
+    moved = sum(not torch.equal(v, stats[k]) for k, v in _running_stats(state.model).items())
+    print(f"deeplabv2: {len(affines)} BatchNorm affines bit-identical to their init: {frozen}; "
+          f"{moved} of {len(stats)} running statistics moved")
+    if not frozen or moved != len(stats):
+        raise AssertionError("DeepLabV2's frozen BatchNorm: an affine moved or a running statistic did not")
+    del state, step, batch
+
+    # BiSeNet-R101's first step from its init, run twice from the same state:
+    # the first run warms up, the second is timed
+    cfg_b = get_preset("bisenet_source_aug")
+    cfg_b = cfg_b.replace(model=dataclasses.replace(cfg_b.model, context_path="resnet101"))
+    hb, wb = cfg_b.train_size
+    state, step = _train_setup(cfg_b, DEV)
+    saved = (copy.deepcopy(state.model.state_dict()), copy.deepcopy(state.optimizer.state_dict()))
+    batch = _train_batch(b, hb, wb, 43, DEV)
+    losses, ms_b = [], 0.0
+    for timed in (False, True):
+        state.model.load_state_dict(saved[0])
+        state.optimizer.load_state_dict(saved[1])
+        state.step = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, m = step(state, batch, torch.Generator(device=DEV).manual_seed(7))
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(float(m["loss"]))
+        ms_b = start.elapsed_time(end)
+    print(f"bisenet/resnet101 {cfg_b.train_mode} b{b} {hb}x{wb} bf16 ({cfg_b.augment.pipeline}): loss "
+          f"{losses[0]:.4f} / {losses[1]:.4f}; {ms_b:.3f} ms/step (its first step, timed on a second run from "
+          f"the same state), {b * 1e3 / ms_b:.1f} img/s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not all(np.isfinite(losses)) or losses[0] != losses[1]:
+        raise AssertionError(f"BiSeNet-R101's step: losses {losses}, not finite or not the same from one state")
+    del state, step, batch, saved
+
+
 LOOP_DIR = os.path.join("build", "chip_smoke_loop")
 
 
@@ -1118,15 +1406,16 @@ def _loop_argv(*extra) -> list:
             "--run_name", "loop", *extra]
 
 
-def _loop_run(argv) -> tuple:
-    """One CLI run with the K1/K2/K3 counts set to 0 just before it; the
-    report, the counts and the wall seconds."""
-    from rtda_semanticsegmentation_tpu_torch.cli import train_adversarial
+def _loop_run(argv, cli: str = "train_adversarial") -> tuple:
+    """One run of ``cli/<cli>.py`` with the K1/K2/K3 counts set to 0 just
+    before it; the report, the counts and the wall seconds."""
+    import importlib
 
+    main = importlib.import_module(f"rtda_semanticsegmentation_tpu_torch.cli.{cli}").main
     klov.hist_launches = klov.bwd_launches = 0
     k3.launches = k3.copies = 0
     t0 = time.perf_counter()
-    report = train_adversarial.main(argv)
+    report = main(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {"lovasz_hist": klov.hist_launches, "lovasz_bwd": klov.bwd_launches, "int8_conv": k3.launches,
@@ -1164,7 +1453,7 @@ def _timings_line(what: str, timings: dict, first: int, steps_per_epoch: int) ->
     return steady, total
 
 
-def phase_loop(isolated_ms: float) -> None:
+def phase_loop(isolated_ms: float) -> int:
     from rtda_semanticsegmentation_tpu_torch.train.checkpoint import FILENAME, CheckpointManager
 
     shutil.rmtree(LOOP_DIR, ignore_errors=True)
@@ -1204,6 +1493,7 @@ def phase_loop(isolated_ms: float) -> None:
         raise AssertionError(f"loss_d at step 1 is {loss_d1}, not within 0.1 of ln 2")
     if steps != 6 or counts["lovasz_hist"] != steps or counts["lovasz_bwd"] != steps:
         raise AssertionError(f"expected one K1 and one K2 launch per step over 6 steps, got {counts} in {steps}")
+    k3_loop = counts["int8_conv"]
     if counts["int8_conv"] != QUANT_CONVS * n_eval or counts["int8_conv_copies"]:
         raise AssertionError(f"expected {QUANT_CONVS} K3 launches per int8 forward over {n_eval} batches and no "
                              f"operand copy, got {counts}")
@@ -1255,6 +1545,67 @@ def phase_loop(isolated_ms: float) -> None:
         raise AssertionError("a logged loss of the resumed run is not finite")
     del report
     shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    return k3_loop
+
+
+DEEPLAB_LOOP_DIR = os.path.join("build", "chip_smoke_deeplab_loop")
+
+
+def phase_deeplab_loop() -> int:
+    """DeepLabV2's training job through ``cli/train.main``: the
+    ``deeplabv2_cityscapes`` preset on synthetic train and validation sets
+    (64 frames each) at 512x1024, batch 8, 1 epoch of 2 steps, validation
+    in 2 batches of 32, one checkpoint, the final int8 evaluation. Gates:
+    2 steps, finite logged losses, the 'best' checkpoint, the BatchNorm
+    affines at their init, ``int8_miou`` in [0, 1], K3 exactly 95 times per
+    int8 batch and no operand copy, no K1 or K2 launch (CE only). Returns
+    K3's launches."""
+    shutil.rmtree(DEEPLAB_LOOP_DIR, ignore_errors=True)
+    argv = ["--preset", "deeplabv2_cityscapes", "--train_dataset", "synthetic", "--val_dataset", "synthetic",
+            "--train_size", str(H), str(W), "--batch_size", "8", "--eval_batch_size", "32", "--epochs", "1",
+            "--steps_per_epoch", "2", "--save_checkpoint_freq_epoch", "1", "--final_int8_eval", "--no_perf",
+            "--print_freq_batch", "1", "--log_backend", "jsonl", "--log_dir", os.path.join(DEEPLAB_LOOP_DIR, "logs"),
+            "--checkpoint_dir", os.path.join(DEEPLAB_LOOP_DIR, "ckpt"), "--run_name", "deeplab"]
+    report, counts, seconds = _loop_run(argv, cli="train")
+    trainer = report["trainer"]
+    cfg = trainer.cfg
+    n_eval = -(-len(trainer.val_ds) // cfg.data.eval_batch_size)
+    print(f"deeplab loop: {report['global_step']} steps, {len(trainer.val_ds)} val images in {n_eval} batches, "
+          f"{seconds:.1f} s for the whole run; launches {counts}; best mIoU {report['best_miou']:.4f}, "
+          f"int8 mIoU {report.get('int8_miou')}, delta {report.get('int8_miou_delta')}")
+    _timings_line("deeplab loop", report["timings"], 1, trainer.steps_per_epoch)
+    if (cfg.model.name, cfg.train_size, cfg.eval_size) != ("deeplabv2", (H, W), (H, W)):
+        raise AssertionError(f"the deeplab loop ran {cfg.model.name} at {cfg.train_size} / {cfg.eval_size}")
+    losses = _loop_losses(os.path.join(DEEPLAB_LOOP_DIR, "logs", "deeplab.jsonl"))
+    if report["global_step"] != 2 or not losses or not all(math.isfinite(v) for _, _, v in losses):
+        raise AssertionError(f"the deeplab loop ran {report['global_step']} steps, losses {losses}")
+    from rtda_semanticsegmentation_tpu_torch.train.checkpoint import FILENAME, CheckpointManager
+
+    ckpt = CheckpointManager(cfg, run_name="deeplab", device=DEV)
+    if not os.path.isfile(os.path.join(ckpt.best_dir, FILENAME)):  # a run's last epoch saves no 'latest'
+        raise AssertionError("the deeplab loop saved no 'best' checkpoint")
+    affines = _bn_affines(trainer.model)
+    identity = all(torch.equal(v, torch.ones_like(v) if n.endswith("weight") else torch.zeros_like(v))
+                   for n, v in affines.items())
+    if not identity:
+        raise AssertionError("a frozen BatchNorm affine of the deeplab loop moved from its init")
+    if not 0.0 <= report.get("int8_miou", -1.0) <= 1.0 or "int8_miou_delta" not in report:
+        raise AssertionError("the deeplab loop's report lacks int8_miou / int8_miou_delta")
+    want = R101_QUANT_CONVS["deeplabv2"] * n_eval
+    if counts["int8_conv"] != want or counts["int8_conv_copies"] or counts["lovasz_hist"] or counts["lovasz_bwd"]:
+        raise AssertionError(f"the deeplab loop: expected {want} K3 launches, no copy and no K1/K2, got {counts}")
+    del report, trainer
+    shutil.rmtree(DEEPLAB_LOOP_DIR, ignore_errors=True)
+    return counts["int8_conv"]
+
+
+def _k3_entry(times: list) -> dict:
+    """K3's kernels-line numbers: the sums of the per-forward times of the
+    three int8 models."""
+    by = {kind: sum(t["by"][kind] for t in times) for kind in ("bytes", "operations")}
+    return {"ms": sum(t["ms"] for t in times), "plain_ms": sum(t["plain_ms"] for t in times),
+            "max_abs_err": max(t["max_abs_err"] for t in times), "bound_ms": sum(t["bound_ms"] for t in times),
+            "bound_by": max(by, key=by.get), "library_ms": None}
 
 
 def main() -> None:
@@ -1267,14 +1618,19 @@ def main() -> None:
     conv3_times = phase_conv3_kernels()
     k3_launches, k4_launches = phase_slice()
     k4_launches += phase_r101()
+    r101_k3_launches, r101_k3_times = phase_r101_int8()
+    k3_launches += r101_k3_launches
     train_launches = phase_train()
     adversarial_launches, isolated_ms = phase_adversarial()
-    phase_loop(isolated_ms)
+    phase_deeplab_train()
+    k3_launches += phase_loop(isolated_ms)
+    k3_launches += phase_deeplab_loop()
+    k3_entry = _k3_entry([k3_times, r101_k3_times["r101"], r101_k3_times["deeplabv2"]])
     pkg = "rtda_semanticsegmentation_tpu_torch/csrc"
     ref = "rtda_semanticsegmentation_tpu/ops"
     kernels = [{
         "name": "int8_conv", "route": "cuda", "source": f"{pkg}/int8_conv.cu",
-        "replaces": f"{ref}/pallas_conv_int8.py:145", "launches": k3_launches, **k3_times,
+        "replaces": f"{ref}/pallas_conv_int8.py:145", "launches": k3_launches, **k3_entry,
     }] + [{
         "name": name, "route": "cuda", "source": f"{pkg}/lovasz.cu",
         "replaces": f"{ref}/pallas_lovasz.py:{line}", "launches": train_launches[name],

@@ -5,9 +5,9 @@
 
 Builds one model of ``chip_smoke.py`` at 512x1024, batch 8, seeded random
 weights: BiSeNet-R18 (``r18``, the default), BiSeNet-R101 (``r101``) or
-DeepLabV2 (``deeplabv2``). Without ``--fused_conv3`` it profiles, for R18,
-bf16, int8, int8 and bf16 (R18 is calibrated on 2 synthetic batches and
-frozen first), and for the R101 models bf16 twice; with ``--fused_conv3``
+DeepLabV2 (``deeplabv2``). Without ``--fused_conv3`` it profiles bf16,
+int8, int8 and bf16 (the model is calibrated on 2 synthetic batches and
+frozen first); with ``--fused_conv3``
 it profiles bf16 with the 3x3 ConvBNs on cuDNN and on K4 in turns (cuDNN,
 K4, K4, cuDNN). The repeats show the spread. For each run it prints:
 
@@ -109,14 +109,12 @@ def main() -> None:
     variables = init_model(build_model(cfg, device="cpu"), torch.Generator().manual_seed(0))
     variables = {k: v.to(cs.DEV) for k, v in variables.items()}
     quantizer = args.model == "r18" and not args.fused_conv3
-    if quantizer:
+    if args.fused_conv3:
+        plan = (("bf16", False), ("bf16", True), ("bf16", True), ("bf16", False))
+    else:
         calib = [normalize_u8(cs._frames(s), aug) for s in (1, 2)]
         variables = freeze(cfg, calibrate(cfg, variables, calib, device=cs.DEV))
         plan = (("bf16", False), ("int8", False), ("int8", False), ("bf16", False))
-    elif args.fused_conv3:
-        plan = (("bf16", False), ("bf16", True), ("bf16", True), ("bf16", False))
-    else:
-        plan = (("bf16", False), ("bf16", False))
     x = cs._frames(100)
     runs = []
     for precision, fused in plan:

@@ -2,7 +2,7 @@
 
 Same flags and outputs as the JAX package's ``cli/predict.py``: decode ->
 resize -> normalize -> forward (bf16, f32, or int8 PTQ calibrated on the
-first ``--calib_batches`` batches; int8 for BiSeNet-R18 only) -> argmax ->
+first ``--calib_batches`` batches, on kernel K3) -> argmax ->
 trainId PNG + colorized PNG (+ overlay), for BiSeNet (``resnet18`` or
 ``resnet101``) and DeepLabV2. ``--device`` picks the device, the counterpart of the JAX
 package's ``JAX_PLATFORMS``: ``cuda`` (the default) needs a CUDA device and
@@ -166,9 +166,6 @@ def main(argv=None) -> int:
 
     if args.artifact:
         raise _not_ported("--artifact (serving artifacts)")
-    if args.precision == "int8" and (args.model_name != "bisenet" or args.context_path != "resnet18"):
-        what = args.model_name if args.model_name == "deeplabv2" else f"bisenet/{args.context_path}"
-        raise _not_ported(f"int8 serving of {what}")
 
     h, w = args.size
     dtype = {"bf16": "bfloat16", "f32": "float32", "int8": "bfloat16"}[args.precision]

@@ -27,7 +27,7 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     # int8 PTQ serving: convs with >= quant_min_ch input channels whose flax
     # path contains no quant_skip substring run on the s8 kernel
-    quant: str = "none"  # none | calib | int8_frozen
+    quant: str = "none"  # none | calib | int8 | int8_frozen
     quant_min_ch: int = 128
     quant_clip: float = 1.0  # 1.0 = exact per-channel max|x|, < 1 a quantile
     quant_skip: Tuple[str, ...] = ()
@@ -170,7 +170,7 @@ class TrainConfig:
     log_images_freq_epoch: int = 10
     latency_iterations: int = 100
     warmup_iterations: int = 10
-    remat: bool = False  # not ported: True raises in make_train_step
+    remat: bool = False  # checkpoint G's forward: the backward recomputes its activations
     # run each loaded batch through N optimizer steps (fresh augmentation
     # draws each); echoed steps count toward steps_per_epoch and the poly LR
     data_echo: int = 1
@@ -235,9 +235,7 @@ class ExperimentConfig:
 
 
 def get_preset(name: str) -> ExperimentConfig:
-    """The JAX package's presets (``BASELINE.json['configs']``). The port
-    serves DeepLabV2 but does not train it yet, so ``deeplabv2_cityscapes``
-    builds a config that ``build_model(..., train=True)`` refuses."""
+    """The JAX package's presets (``BASELINE.json['configs']``)."""
     base = ExperimentConfig()
     if name == "bisenet_source_small":
         return base.replace(

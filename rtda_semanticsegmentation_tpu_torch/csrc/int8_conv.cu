@@ -3,10 +3,11 @@
 //
 // K3: replaces the TPU kernel rtda_semanticsegmentation_tpu/ops/pallas_conv_int8.py
 // ::int8_conv3x3s1p1 (_conv3_s8_kernel + _epilogue), generalised from 3x3/s1/p1
-// to any KHxKW kernel, stride and symmetric padding (BiSeNet-R18's quantized
-// convs are 3x3/s1/p1, 3x3/s2/p1 and 1x1/s2/p0).
+// to any square kernel, stride, dilation d and symmetric padding (the quantized
+// convs of BiSeNet are 3x3/s1/p1, 3x3/s2/p1 and 1x1 at stride 1 or 2;
+// DeepLabV2's dilated layer3 and layer4 add 3x3/s1 at d = p = 2 and 4).
 //
-//   acc = sum_{kh,kw,c} xq_padded[b, oh*s+kh, ow*s+kw, c] * wq[kh, kw, c, co]
+//   acc = sum_{kh,kw,c} xq_padded[b, oh*s+kh*d, ow*s+kw*d, c] * wq[kh, kw, c, co]
 //   z   = acc * a[co] + b[co]                       (f32, each op rounded)
 //   z   = max(z, 0)                                 (relu != 0)
 //   out = z as f32 | z as bf16 (round to nearest even)
@@ -39,8 +40,8 @@
 //   of up to 8 stages that runs on into the next tile while the consumers
 //   write this one (the 1/32 maps give 128 tiles, on 128 of the 132 SMs);
 // - a stage is one tap and 128 channels, the taps of a chunk in a row: A an
-//   im2col-mode TMA load (stride s as the map's traversal stride, the tap as
-//   the load's offsets), B a tiled load of N rows of the K-major weights;
+//   im2col-mode TMA load (stride s as the map's traversal stride, the tap
+//   times d as the load's offsets), B a tiled load of N rows of the K-major weights;
 //   both 128-byte swizzled;
 // - the s32 accumulator is exact, so one chain runs over all of K; each
 //   stage's wgmmas stay in flight while the next stage's are issued.
@@ -122,7 +123,7 @@ enum OutKind { kF32 = 0, kBF16 = 1, kS8 = 2 };
 
 struct Params {
   int H, W, HO, WO, CO, M;  // M = B * HO * WO output pixels
-  int KH, KW, stride, pad;
+  int KH, KW, stride, pad, dil;
   int iters;                // KH * KW taps x 128-channel chunks of C: the stages of a tile
   int relu;
   int ntn, tiles;           // N tiles; M tiles x N tiles
@@ -168,8 +169,9 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant
           mbar_expect_tx(full, stage_bytes(BN));
           // chunk-major: the taps of one 128-channel chunk in a row (conv3x3.cu)
           const int taps = p.KH * p.KW, chunk = it / taps, tap = it - chunk * taps, c0 = chunk * kRow;
+          const int kw = tap % p.KW, kh = tap / p.KW;
           tma_load_im2col(st, &xmap, full, c0, ow * p.stride - p.pad, oh * p.stride - p.pad, bi,
-                          static_cast<uint16_t>(tap % p.KW), static_cast<uint16_t>(tap / p.KW));
+                          static_cast<uint16_t>(kw * p.dil), static_cast<uint16_t>(kh * p.dil));
           tma_load_3d(st + a_bytes(BN), &wmap, full, c0, tap, n0);
         }
       }
@@ -227,9 +229,12 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant
           // TMA, -127 in the plain version
           uint32_t outside = 0;
           for (int kh = 0; kh < p.KH; ++kh) {
-            const bool row_out = ih0 + kh < 0 || ih0 + kh >= p.H;
-            for (int kw = 0; kw < p.KW; ++kw)
-              if (row_out || iw0 + kw < 0 || iw0 + kw >= p.W) outside |= 1u << (kh * p.KW + kw);
+            const int ih = ih0 + kh * p.dil;
+            const bool row_out = ih < 0 || ih >= p.H;
+            for (int kw = 0; kw < p.KW; ++kw) {
+              const int iw = iw0 + kw * p.dil;
+              if (row_out || iw < 0 || iw >= p.W) outside |= 1u << (kh * p.KW + kw);
+            }
           }
           for (int tap = 0; outside != 0; ++tap, outside >>= 1) {
             if (!(outside & 1)) continue;
@@ -261,9 +266,9 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant
 template <int BN, int kOut>
 int launch(const void* x, const void* wk, const int* colsum, const float* a, const float* b, const float* inv,
            void* out, int B, int H, int W, int C, int HO, int WO, int CO, int KH, int KW, int stride, int pad,
-           int relu, cudaStream_t stream) {
+           int dil, int relu, cudaStream_t stream) {
   CUtensorMap xmap, wmap;
-  int err = encode_im2col(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, x, B, H, W, C, KH, stride, pad, 1, tile_m(BN));
+  int err = encode_im2col(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, x, B, H, W, C, KH, stride, pad, dil, tile_m(BN));
   if (err) return err;
   // wk as (C, taps, CO): boxes of 128 channels x 1 tap x BN output channels
   err = encode_tiled_3d(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wk, C, KH * KW, CO, C,
@@ -273,7 +278,7 @@ int launch(const void* x, const void* wk, const int* colsum, const float* a, con
   const int ntn = (CO + BN - 1) / BN;
   const long long tiles = static_cast<long long>((M + tile_m(BN) - 1) / tile_m(BN)) * ntn;
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const Params p{H, W, HO, WO, CO, M, KH, KW, stride, pad, KH * KW * kc, relu, ntn, static_cast<int>(tiles)};
+  const Params p{H, W, HO, WO, CO, M, KH, KW, stride, pad, dil, KH * KW * kc, relu, ntn, static_cast<int>(tiles)};
   const int smem = smem_bytes(stage_bytes(BN));
   static const cudaError_t attr =
       cudaFuncSetAttribute(int8_conv_kernel<BN, kOut>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -286,11 +291,13 @@ int launch(const void* x, const void* wk, const int* colsum, const float* a, con
 template <int kOut>
 int launch_bn(int bn, const void* x, const void* wk, const int* colsum, const float* a, const float* b,
               const float* inv, void* out, int B, int H, int W, int C, int HO, int WO, int CO, int KH, int KW,
-              int stride, int pad, int relu, cudaStream_t st) {
+              int stride, int pad, int dil, int relu, cudaStream_t st) {
   if (bn == 128)
-    return launch<128, kOut>(x, wk, colsum, a, b, inv, out, B, H, W, C, HO, WO, CO, KH, KW, stride, pad, relu, st);
+    return launch<128, kOut>(x, wk, colsum, a, b, inv, out, B, H, W, C, HO, WO, CO, KH, KW, stride, pad, dil, relu,
+                             st);
   if (bn == 24)
-    return launch<24, kOut>(x, wk, colsum, a, b, inv, out, B, H, W, C, HO, WO, CO, KH, KW, stride, pad, relu, st);
+    return launch<24, kOut>(x, wk, colsum, a, b, inv, out, B, H, W, C, HO, WO, CO, KH, KW, stride, pad, dil, relu,
+                            st);
   return cudaErrorInvalidValue;
 }
 
@@ -301,9 +308,10 @@ int launch_bn(int bn, const void* x, const void* wk, const int* colsum, const fl
 // an encode error (hopper_conv.cuh). bn is the N tile (128 or 24).
 extern "C" int int8_conv_launch(const void* x, const void* wk, const void* colsum, const void* a, const void* b,
                                 const void* inv, void* out, int B, int H, int W, int C, int HO, int WO, int CO,
-                                int KH, int KW, int stride, int pad, int relu, int out_kind, int bn, void* stream) {
+                                int KH, int KW, int stride, int pad, int dil, int relu, int out_kind, int bn,
+                                void* stream) {
   if (B < 1 || C < 1 || CO < 1 || HO < 1 || WO < 1 || KH * KW > 32 || stride < 1 || stride > 8 || pad > 127 ||
-      pad - (KH - 1) < -128 || KH != KW)
+      dil < 1 || dil > 128 || pad - (KH - 1) * dil < -128 || KH != KW)
     return cudaErrorInvalidValue;  // a 32-bit tap mask; the im2col map's traversal stride and 8-bit box corners
   if (C % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(wk) % 16 != 0)
     return cudaErrorInvalidValue;  // TMA needs 16-byte aligned bases and row strides
@@ -315,11 +323,14 @@ extern "C" int int8_conv_launch(const void* x, const void* wk, const void* colsu
   const auto* ip = static_cast<const float*>(inv);
   switch (out_kind) {
     case kF32:
-      return launch_bn<kF32>(bn, x, wk, cs, ap, bp, ip, out, B, H, W, C, HO, WO, CO, KH, KW, stride, pad, relu, s);
+      return launch_bn<kF32>(bn, x, wk, cs, ap, bp, ip, out, B, H, W, C, HO, WO, CO, KH, KW, stride, pad, dil, relu,
+                             s);
     case kBF16:
-      return launch_bn<kBF16>(bn, x, wk, cs, ap, bp, ip, out, B, H, W, C, HO, WO, CO, KH, KW, stride, pad, relu, s);
+      return launch_bn<kBF16>(bn, x, wk, cs, ap, bp, ip, out, B, H, W, C, HO, WO, CO, KH, KW, stride, pad, dil, relu,
+                             s);
     case kS8:
-      return launch_bn<kS8>(bn, x, wk, cs, ap, bp, ip, out, B, H, W, C, HO, WO, CO, KH, KW, stride, pad, relu, s);
+      return launch_bn<kS8>(bn, x, wk, cs, ap, bp, ip, out, B, H, W, C, HO, WO, CO, KH, KW, stride, pad, dil, relu,
+                             s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,10 +1,12 @@
 """s8 NHWC convolution with the int8 serving epilogue fused (CUDA kernel K3).
 
 Counterpart of ``rtda_semanticsegmentation_tpu/ops/pallas_conv_int8.py::
-int8_conv3x3s1p1``, generalised from 3x3/s1/p1 to the stride and kernel
-shapes BiSeNet-R18's quantized convs use (3x3/s1/p1, 3x3/s2/p1, 1x1/s2/p0):
+int8_conv3x3s1p1``, generalised from 3x3/s1/p1 to the kernel shapes, strides
+and dilations the quantized convs of BiSeNet (R18 and R101) and DeepLabV2
+use (3x3/s1/p1, 3x3/s2/p1, 1x1 at stride 1 or 2, and DeepLabV2's 3x3 at
+dilation 2 and 4 with padding = dilation):
 
-    acc = conv(pad(xq, -127), wq)       s8 x s8 -> s32, zero-code padding
+    acc = conv(pad(xq, -127), wq, d)    s8 x s8 -> s32, zero-code padding
     z   = acc * a + b                   per output channel, f32
     z   = max(z, 0)                     if relu
     out = z in out_dtype, or clip(round(z * inv_out), 0, 254) - 127 as s8
@@ -47,7 +49,12 @@ _S8 = 2
 _lib = None
 
 
-def _check(xq, wq, a, b, inv_out, stride, padding, relu, out_dtype):
+def out_size(n: int, k: int, stride: int, padding: int, dilation: int) -> int:
+    """Output length of a conv along one axis of length ``n``."""
+    return (n + 2 * padding - dilation * (k - 1) - 1) // stride + 1
+
+
+def _check(xq, wq, a, b, inv_out, stride, padding, dilation, relu, out_dtype):
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise TypeError(f"int8_conv needs s8 codes and weights, got {xq.dtype}, {wq.dtype}")
     if xq.dim() != 4 or wq.dim() != 4:
@@ -64,11 +71,10 @@ def _check(xq, wq, a, b, inv_out, stride, padding, relu, out_dtype):
         raise ValueError("requantized (s8) output requires relu=True")
     if inv_out is None and out_dtype not in _OUT_KIND:
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    if stride < 1 or padding < 0:
-        raise ValueError(f"bad stride/padding {stride}/{padding}")
+    if stride < 1 or padding < 0 or dilation < 1:
+        raise ValueError(f"bad stride/padding/dilation {stride}/{padding}/{dilation}")
     _, h, w, _ = xq.shape
-    ho = (h + 2 * padding - kh) // stride + 1
-    wo = (w + 2 * padding - kw) // stride + 1
+    ho, wo = out_size(h, kh, stride, padding, dilation), out_size(w, kw, stride, padding, dilation)
     if ho < 1 or wo < 1:
         raise ValueError(f"empty output for input {h}x{w}, kernel {kh}x{kw}")
     return ho, wo
@@ -95,15 +101,15 @@ def kmajor_weights(wq: torch.Tensor) -> tuple:
 
 
 def zero_code_border_correction(colsum: torch.Tensor, h: int, w: int, kh: int, kw: int,
-                                stride: int, padding: int) -> torch.Tensor:
+                                stride: int, padding: int, dilation: int = 1) -> torch.Tensor:
     """What the -127 pad adds to the s32 accumulator of a zero-padded conv,
     (HO, WO, CO) int64: ``-127 * sum of colsum[tap]`` over the taps whose
-    input pixel ``(oh*stride - padding + kh, ow*stride - padding + kw)`` lies
-    outside the h x w image. The kernel's epilogue adds the same sum."""
-    ho = (h + 2 * padding - kh) // stride + 1
-    wo = (w + 2 * padding - kw) // stride + 1
-    ih = torch.arange(ho).view(1, ho) * stride - padding + torch.arange(kh).view(kh, 1)  # (KH, HO)
-    iw = torch.arange(wo).view(1, wo) * stride - padding + torch.arange(kw).view(kw, 1)  # (KW, WO)
+    input pixel ``(oh*stride - padding + kh*dilation, ow*stride - padding +
+    kw*dilation)`` lies outside the h x w image. The kernel's epilogue adds
+    the same sum."""
+    ho, wo = out_size(h, kh, stride, padding, dilation), out_size(w, kw, stride, padding, dilation)
+    ih = torch.arange(ho).view(1, ho) * stride - padding + dilation * torch.arange(kh).view(kh, 1)  # (KH, HO)
+    iw = torch.arange(wo).view(1, wo) * stride - padding + dilation * torch.arange(kw).view(kw, 1)  # (KW, WO)
     row_out = (ih < 0) | (ih >= h)
     col_out = (iw < 0) | (iw >= w)
     outside = row_out.view(kh, 1, ho, 1) | col_out.view(1, kw, 1, wo)  # (KH, KW, HO, WO)
@@ -127,6 +133,7 @@ def int8_conv_plain(
     *,
     stride: int,
     padding: int,
+    dilation: int = 1,
     relu: bool,
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
@@ -138,10 +145,10 @@ def int8_conv_plain(
     the rounding recovers the exact sum. The epilogue rounds each f32
     operation separately, as the kernel does.
     """
-    _check(xq, wq, a, b, inv_out, stride, padding, relu, out_dtype)
+    _check(xq, wq, a, b, inv_out, stride, padding, dilation, relu, out_dtype)
     x = pad_zero_code(xq, padding).permute(0, 3, 1, 2).to(torch.float64).contiguous()
     w = wq.permute(3, 2, 0, 1).to(torch.float64).contiguous()
-    acc = torch.round(F.conv2d(x, w, stride=stride))
+    acc = torch.round(F.conv2d(x, w, stride=stride, dilation=dilation))
     z = acc.to(torch.float32) * a.view(1, -1, 1, 1)
     z = z + b.view(1, -1, 1, 1)
     if relu:
@@ -163,6 +170,7 @@ def int8_conv(
     *,
     stride: int,
     padding: int,
+    dilation: int = 1,
     relu: bool,
     out_dtype: torch.dtype = torch.bfloat16,
     kmajor: Optional[tuple] = None,
@@ -174,11 +182,11 @@ def int8_conv(
     if xq.device.type == "cpu":
         return int8_conv_plain(
             xq, wq, a, b, inv_out,
-            stride=stride, padding=padding, relu=relu, out_dtype=out_dtype,
+            stride=stride, padding=padding, dilation=dilation, relu=relu, out_dtype=out_dtype,
         )
     if xq.device.type != "cuda":
         raise ValueError(f"int8_conv runs on CPU or CUDA tensors, got {xq.device}")
-    ho, wo = _check(xq, wq, a, b, inv_out, stride, padding, relu, out_dtype)
+    ho, wo = _check(xq, wq, a, b, inv_out, stride, padding, dilation, relu, out_dtype)
     tensors = [xq, wq, a, b] + ([inv_out] if inv_out is not None else [])
     for t in tensors:
         if t.device != xq.device:
@@ -189,9 +197,13 @@ def int8_conv(
     if bsz * ho * wo >= 2**31:
         raise ValueError("too many output pixels for the kernel's 32-bit pixel index")
     kh, kw, _, co = wq.shape
-    if kh != kw or kh * kw > 32 or stride > 8 or padding > 127 or padding - (kh - 1) < -128:
-        raise ValueError(f"int8_conv takes square kernels of up to 32 taps, stride <= 8 and padding <= 127, "
-                         f"got {kh}x{kw}, stride {stride}, padding {padding}")
+    # the im2col map's traversal stride is at most 8 and its box corners,
+    # -padding and padding - (k - 1) * dilation, are 8-bit
+    if (kh != kw or kh * kw > 32 or stride > 8 or padding > 127 or dilation > 128
+            or padding - (kh - 1) * dilation < -128):
+        raise ValueError(f"int8_conv takes square kernels of up to 32 taps, stride <= 8, padding <= 127, "
+                         f"dilation <= 128 and padding - (k - 1) * dilation >= -128, got {kh}x{kw}, "
+                         f"stride {stride}, padding {padding}, dilation {dilation}")
     c16 = -(-c // 16) * 16
     n_tile, copy_x = launch_plan(c, co, xq.data_ptr() % 16 == 0)
     global copies
@@ -219,7 +231,7 @@ def int8_conv(
         err = lib.int8_conv_launch(
             xq.data_ptr(), wk.data_ptr(), colsum.data_ptr(), a.data_ptr(), b.data_ptr(),
             inv_out.data_ptr() if inv_out is not None else None, out.data_ptr(),
-            bsz, h, w, c16, ho, wo, co, kh, kw, stride, padding, int(relu), kind, n_tile,
+            bsz, h, w, c16, ho, wo, co, kh, kw, stride, padding, dilation, int(relu), kind, n_tile,
             stream,
         )
     if err != 0:
@@ -235,7 +247,7 @@ def _library():
         lib = load_library(SOURCE)
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.int8_conv_launch.argtypes = [p] * 7 + [i] * 14 + [p]
+        lib.int8_conv_launch.argtypes = [p] * 7 + [i] * 15 + [p]
         lib.int8_conv_launch.restype = i
         _lib = lib
     return _lib

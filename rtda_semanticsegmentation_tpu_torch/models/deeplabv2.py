@@ -6,8 +6,12 @@ dilations 6, 12, 18 and 24 on the stage-4 feature, summed in the compute
 dtype, then a bilinear resize of the logits to the input size. The head's
 kernels are drawn from N(0, 0.01), its biases start at zero. Module names
 are the flax ones (``resnet``, ``aspp``, ``branch0`` ..). ``fused_conv3``
-runs the trunk's 3x3 convs (dilated ones included) on K4; the ASPP branches
-stay on ``F.conv2d``.
+runs the trunk's 3x3 convs (dilated ones included) on K4; ``quant`` makes
+the trunk's wide ConvBNs int8 (K3, dilated ones included), as the JAX
+model passes its ``quant*`` fields to ``ResNetFeatures``. The ASPP
+branches stay float ``F.conv2d`` either way (the JAX ASPP is ``nn.Conv``).
+DeepLabV2's frozen BatchNorm affines are the optimizer's business
+(``train/optim.py::build_generator_tx(freeze_bn=True)``).
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .layers import Conv, resize_bilinear
+from .layers import Conv, QuantPolicy, resize_bilinear
 from .resnet import ResNetFeatures
 
 
@@ -39,15 +43,16 @@ class ASPP(nn.Module):
 class DeepLabV2(nn.Module):
     """``forward(x)`` takes NCHW float input and returns NCHW logits at the
     input size; ``upsample=False`` (eval only) returns the 1/8 logits. In
-    train mode it returns ``(logits, None, None)``, BiSeNet's signature."""
+    train mode it returns ``(logits, None, None)``, BiSeNet's signature;
+    ``aux`` is that signature's too, and the model has no aux heads."""
 
-    def __init__(self, num_classes=19, *, dtype=torch.float32, fused_conv3=False):
+    def __init__(self, num_classes=19, *, dtype=torch.float32, quant=QuantPolicy(), fused_conv3=False):
         super().__init__()
-        self.resnet = ResNetFeatures(101, output_stride=8, deeplab_style=True, dtype=dtype,
+        self.resnet = ResNetFeatures(101, output_stride=8, deeplab_style=True, dtype=dtype, quant=quant,
                                      path="resnet", fused_conv3=fused_conv3)
         self.aspp = ASPP(self.resnet.channels[1], num_classes, dtype=dtype)
 
-    def forward(self, x, upsample: bool = True):
+    def forward(self, x, upsample: bool = True, aux: bool = False):
         h, w = x.shape[2], x.shape[3]
         _, c4 = self.resnet(x)
         logits = self.aspp(c4)

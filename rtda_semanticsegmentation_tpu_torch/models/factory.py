@@ -26,7 +26,7 @@ def build_model(cfg: ModelConfig, device="cuda", train: bool = False,
     """The generator named by ``cfg.name``, with uninitialized parameters,
     on ``device``.
 
-    ``cfg.quant``: ``none``, ``calib`` or ``int8_frozen`` (set by
+    ``cfg.quant``: ``none``, ``calib``, ``int8`` or ``int8_frozen`` (set by
     ``models/quantize.py``). ``train`` builds the train tree (with the aux
     supervision heads) in train mode; otherwise the eval tree in eval
     mode. ``fused_conv3`` (bf16 eval, ``quant='none'``) runs the 3x3 /
@@ -37,16 +37,8 @@ def build_model(cfg: ModelConfig, device="cuda", train: bool = False,
     ``layers.fold_kernel_operands``."""
     if cfg.name not in ("bisenet", "deeplabv2"):
         raise ValueError(f"unknown model {cfg.name!r}; options: bisenet, deeplabv2")
-    if cfg.quant not in ("none", "calib", "int8_frozen"):
-        raise NotImplementedError(
-            f"quant mode {cfg.quant!r} is not ported (none, calib, int8_frozen)"
-        )
-    what = "deeplabv2" if cfg.name == "deeplabv2" else f"bisenet/{cfg.context_path}"
-    r101 = cfg.name == "deeplabv2" or cfg.context_path == "resnet101"
-    if r101 and cfg.quant != "none":
-        raise NotImplementedError(f"int8 serving of {what} is not ported yet (only bisenet/resnet18)")
-    if r101 and train:
-        raise NotImplementedError(f"training {what} is not ported yet (only bisenet/resnet18)")
+    if cfg.quant not in ("none", "calib", "int8", "int8_frozen"):
+        raise ValueError(f"unknown quant mode {cfg.quant!r} (none, calib, int8, int8_frozen)")
     quant = QuantPolicy(cfg.quant, cfg.quant_min_ch, cfg.quant_clip, tuple(cfg.quant_skip))
     if train and cfg.quant != "none":
         raise ValueError("training runs quant='none'")
@@ -54,7 +46,7 @@ def build_model(cfg: ModelConfig, device="cuda", train: bool = False,
         raise ValueError("fused_conv3 is an eval path: K4 has no backward")
     dtype = getattr(torch, cfg.compute_dtype)
     if cfg.name == "deeplabv2":
-        model = DeepLabV2(cfg.num_classes, dtype=dtype, fused_conv3=fused_conv3)
+        model = DeepLabV2(cfg.num_classes, dtype=dtype, quant=quant, fused_conv3=fused_conv3)
     else:
         model = BiSeNet(cfg.num_classes, cfg.context_path, dtype=dtype, quant=quant,
                         aux_heads=train, fused_conv3=fused_conv3)

@@ -23,6 +23,7 @@ reads (K-major, with their column sums).
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -32,14 +33,14 @@ import torch.nn.functional as F
 
 from ..kernels import conv3x3 as _k4
 from ..kernels.int8_conv import kmajor_weights
-from ..ops.quant import calib_clip_channels, int8_conv_unsigned
+from ..ops.quant import calib_clip_channels, fold_bn_epilogue, freeze_weights, int8_conv_unsigned
 
 
 @dataclass(frozen=True)
 class QuantPolicy:
     """Which convs run int8 and how (``ModelConfig.quant*``)."""
 
-    mode: str = "none"  # none | calib | int8_frozen
+    mode: str = "none"  # none | calib | int8 | int8_frozen
     min_ch: int = 128
     clip: float = 1.0
     skip: Tuple[str, ...] = ()
@@ -80,6 +81,11 @@ class QuantConv(Conv):
     - ``calib``: records the per-input-channel clip statistic (max-merged)
       and the running mean of the input into ``in_absmax`` / ``in_mean`` /
       ``calib_batches``, then runs the compute-dtype conv.
+    - ``int8``: on each forward, computes the frozen constants from the f32
+      weight, the calibrated statistics and the following BatchNorm (``bn``,
+      passed by the ConvBN) as :func:`models.quantize.freeze` does, in the
+      same expressions, then runs the s8 kernel as ``int8_frozen`` does: the
+      two modes give the same bits. K3's K-major weights are made per call.
     - ``int8_frozen``: quantizes the input on the unsigned grid and runs the
       s8 kernel against the frozen constants. ``wq`` / ``sw`` / ``c`` are the
       JAX package's ``quant_frozen`` tensors; ``a`` / ``b`` fold the
@@ -90,13 +96,15 @@ class QuantConv(Conv):
       ``wq`` in the layout K3 reads; without them each call makes its own.
       A forward after ``wq`` was written or replaced since the fold raises
       instead of serving the old weights.
+
+    Every mode runs the conv at its ``dilation``.
     """
 
     def __init__(self, in_ch, out_ch, kernel_size, stride, padding, *,
-                 mode, relu, dtype=torch.float32, init="fan_in", clip=1.0):
-        super().__init__(in_ch, out_ch, kernel_size, stride, padding,
+                 mode, relu, dilation=1, dtype=torch.float32, init="fan_in", clip=1.0):
+        super().__init__(in_ch, out_ch, kernel_size, stride, padding, dilation=dilation,
                          bias=False, dtype=dtype, init=init)
-        if mode not in ("calib", "int8_frozen"):
+        if mode not in ("calib", "int8", "int8_frozen"):
             raise ValueError(f"unknown QuantConv mode {mode!r}")
         self.mode, self.relu, self.clip = mode, relu, clip
         self.register_buffer("in_absmax", torch.zeros(in_ch))
@@ -132,18 +140,29 @@ class QuantConv(Conv):
         self.in_mean.copy_((self.in_mean * n + bmean) / (n + 1.0))
         self.calib_batches.add_(1.0)
 
-    def forward(self, x):
+    def forward(self, x, bn=None):
         x_nhwc = x.permute(0, 2, 3, 1)
         if self.mode == "calib":
             self._record(x_nhwc)
             return super().forward(x)
-        if self.k3_weight is not None and self._wq_state() != self._k3_source:
-            raise RuntimeError("wq changed after layers.fold_kernel_operands(model); call it again")
+        kmajor = None
+        if self.mode == "int8":
+            if bn is None:
+                raise ValueError("the int8 mode folds the following BatchNorm: call it through its ConvBN")
+            wq, sw, c = freeze_weights(self.weight.permute(2, 3, 1, 0), self.in_absmax, self.in_mean)
+            wq = wq.contiguous()
+            scale, shift = fold_batch_norm(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+            a, b = fold_bn_epilogue(sw, c, scale, shift)
+        else:
+            if self.k3_weight is not None and self._wq_state() != self._k3_source:
+                raise RuntimeError("wq changed after layers.fold_kernel_operands(model); call it again")
+            wq, a, b = self.wq, self.a, self.b
+            if self.k3_weight is not None:
+                kmajor = (self.k3_weight, self.k3_colsum)
         y = int8_conv_unsigned(
-            x_nhwc, self.wq, self.a, self.b, self.in_absmax,
-            stride=self.stride, padding=self.padding, relu=self.relu,
-            out_dtype=self.dtype,
-            kmajor=None if self.k3_weight is None else (self.k3_weight, self.k3_colsum),
+            x_nhwc, wq, a, b, self.in_absmax,
+            stride=self.stride, padding=self.padding, dilation=self.dilation, relu=self.relu,
+            out_dtype=self.dtype, kmajor=kmajor,
         )
         return y.permute(0, 3, 1, 2)
 
@@ -165,12 +184,14 @@ class FoldableBatchNorm(nn.Module):
       over (N, H, W) in at least f32; the running statistics move with
       flax momentum 0.9 (torch 0.1) and track the unbiased variance,
       ``var * n / (n - 1)``. A gate BN over (B, C, 1, 1) reduces over the
-      batch only (n = B).
+      batch only (n = B). Inside :func:`running_stats_held` the running
+      statistics stay as they are.
     """
 
     def __init__(self, ch, eps=1e-5, momentum=0.9):
         super().__init__()
         self.eps, self.momentum = eps, momentum
+        self.update_running_stats = True
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
@@ -186,13 +207,32 @@ class FoldableBatchNorm(nn.Module):
             mean = xf.mean(dim=(0, 2, 3))
             var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
             n = x.numel() // x.shape[1]
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var * (n / max(n - 1, 1)))
+            if self.update_running_stats:
+                self._update_running_stats(mean, var, n)
             mul = self.weight * torch.rsqrt(var + self.eps)
             add = self.bias - mean * mul
         return x * mul.to(x.dtype).view(1, -1, 1, 1) + add.to(x.dtype).view(1, -1, 1, 1)
+
+    @torch.no_grad()
+    def _update_running_stats(self, mean, var, n: int) -> None:
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var * (n / max(n - 1, 1)))
+
+
+@contextlib.contextmanager
+def running_stats_held(model: nn.Module):
+    """Train-mode BatchNorms of ``model`` that leave their running statistics
+    as they are: the recompute of a checkpointed forward (``train.remat``)
+    must not move them a second time."""
+    bns = [m for m in model.modules() if isinstance(m, FoldableBatchNorm)]
+    for m in bns:
+        m.update_running_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_running_stats = True
 
 
 class ConvBN(nn.Module):
@@ -219,7 +259,7 @@ class ConvBN(nn.Module):
             raise ValueError("fused_conv3 and int8 quantization exclude each other")
         if quant.applies(path, in_ch):
             self.conv = QuantConv(in_ch, out_ch, kernel_size, stride, padding,
-                                  mode=quant.mode, relu=use_relu, dtype=dtype,
+                                  mode=quant.mode, relu=use_relu, dilation=dilation, dtype=dtype,
                                   init=init, clip=quant.clip)
         else:
             self.conv = Conv(in_ch, out_ch, kernel_size, stride, padding, dilation=dilation,
@@ -253,8 +293,11 @@ class ConvBN(nn.Module):
                             self.k4_shift, relu=self.use_relu, dilation=self.conv.dilation,
                             out_dtype=self.dtype)
             return y.permute(0, 3, 1, 2)
-        if getattr(self.conv, "mode", None) == "int8_frozen":
+        mode = getattr(self.conv, "mode", None)
+        if mode == "int8_frozen":
             return self.conv(x)  # BN and ReLU run in the kernel's epilogue
+        if mode == "int8":
+            return self.conv(x, self.bn)
         x = self.bn(self.conv(x))
         if self.use_relu:
             x = F.relu(x)

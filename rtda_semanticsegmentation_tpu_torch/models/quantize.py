@@ -11,7 +11,10 @@ Port of the JAX ``models/quantize.py``:
 parameters and the calibrated statistics. Besides the JAX package's
 ``wq`` / ``sw`` / ``c`` it folds each quantized conv's BatchNorm into the
 int8 kernel's epilogue, ``z = acc * a + b`` with ``a = sw * bn_scale`` and
-``b = c * bn_scale + bn_shift``, once.
+``b = c * bn_scale + bn_shift``, once (``ops/quant.py::fold_bn_epilogue``).
+Every quantized conv of the models is a ConvBN's (BasicBlock and Bottleneck
+convs with or without ReLU, downsample projections, the spatial path, the
+FFM), so each has a BatchNorm to fold.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from typing import Iterable
 import torch
 
 from ..config import ModelConfig
-from ..ops.quant import freeze_weights
+from ..ops.quant import fold_bn_epilogue, freeze_weights
 from .convert import QUANT_STATS
 from .factory import build_model, load_variables
 from .layers import fold_batch_norm
@@ -70,14 +73,17 @@ def freeze(model_cfg: ModelConfig, variables: dict) -> dict:
                 out[f"{bn}.weight"], out[f"{bn}.bias"],
                 out[f"{bn}.running_mean"], out[f"{bn}.running_var"],
             )
-            out[f"{conv}.a"] = out[f"{conv}.sw"] * scale
-            out[f"{conv}.b"] = out[f"{conv}.c"] * scale + shift
+            out[f"{conv}.a"], out[f"{conv}.b"] = fold_bn_epilogue(out[f"{conv}.sw"], out[f"{conv}.c"], scale, shift)
     return out
 
 
 def quantized_model(model_cfg: ModelConfig, frozen: bool = True, device="cuda"):
-    """The generator with its quantized convs on the int8 kernel; load the
-    :func:`freeze` output into it with ``factory.load_variables``."""
-    if not frozen:
-        raise NotImplementedError("the non-frozen int8 mode is not ported yet; use frozen=True")
-    return build_model(dataclasses.replace(model_cfg, quant="int8_frozen"), device)
+    """The generator with its quantized convs on the int8 kernel.
+
+    ``frozen=True``: load the :func:`freeze` output into it with
+    ``factory.load_variables``, then ``layers.fold_kernel_operands``.
+    ``frozen=False`` (the JAX package's ``int8`` mode): load the calibrated
+    variables; each forward recomputes the frozen constants from the
+    weights, the statistics and the BatchNorms, giving the same outputs as
+    the frozen model."""
+    return build_model(dataclasses.replace(model_cfg, quant="int8_frozen" if frozen else "int8"), device)

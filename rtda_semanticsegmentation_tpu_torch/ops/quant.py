@@ -94,6 +94,7 @@ def int8_conv_unsigned(
     *,
     stride: int,
     padding: int,
+    dilation: int = 1,
     relu: bool,
     out_dtype: torch.dtype,
     kmajor=None,
@@ -101,11 +102,22 @@ def int8_conv_unsigned(
     """Unsigned int8 conv of NHWC ``x``: quantize the input, then the s8
     conv kernel (zero-code pad) with the epilogue ``acc * a + b`` and an
     optional ReLU. The serving path's ``QuantConv`` passes constants with
-    the following BatchNorm folded in, and ``kmajor``, the kernel's weight
-    copy (``kernels/int8_conv.py::kmajor_weights``)."""
+    the following BatchNorm folded in (:func:`fold_bn_epilogue`), and
+    ``kmajor``, the kernel's weight copy
+    (``kernels/int8_conv.py::kmajor_weights``)."""
     xq = quantize_act_unsigned(x, in_absmax).contiguous()
-    return _k3.int8_conv(xq, wq, a, b, stride=stride, padding=padding, relu=relu,
+    return _k3.int8_conv(xq, wq, a, b, stride=stride, padding=padding, dilation=dilation, relu=relu,
                          out_dtype=out_dtype, kmajor=kmajor)
+
+
+def fold_bn_epilogue(sw: torch.Tensor, c: torch.Tensor, bn_scale: torch.Tensor,
+                     bn_shift: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The s8 kernel's epilogue ``acc * a + b`` of a conv whose output
+    ``acc * sw + c`` feeds the eval BatchNorm ``y * bn_scale + bn_shift``:
+    ``a = sw * bn_scale``, ``b = c * bn_scale + bn_shift``. The frozen
+    constants (``models/quantize.py::freeze``) and the ``int8`` mode's
+    per-forward ones are this one expression."""
+    return sw * bn_scale, c * bn_scale + bn_shift
 
 
 def int8_conv_frozen(
@@ -116,13 +128,16 @@ def int8_conv_frozen(
     in_absmax: torch.Tensor,
     strides,
     padding,
+    dilation=(1, 1),
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """Unsigned int8 conv of NHWC ``x`` against :func:`freeze_weights`
     constants: :func:`int8_conv_unsigned` with the epilogue ``acc * sw + c``
-    and no ReLU, taking the JAX package's stride and padding tuples."""
-    (s0, s1), ((p0, p1), (p2, p3)) = strides, padding
-    if s0 != s1 or len({p0, p1, p2, p3}) != 1:
-        raise ValueError(f"int8 conv needs symmetric strides and padding, got {strides}, {padding}")
-    return int8_conv_unsigned(x, wq, sw, c, in_absmax, stride=s0, padding=p0, relu=False,
+    and no ReLU, taking the JAX package's stride, padding and dilation
+    tuples."""
+    (s0, s1), ((p0, p1), (p2, p3)), (d0, d1) = strides, padding, dilation
+    if s0 != s1 or len({p0, p1, p2, p3}) != 1 or d0 != d1:
+        raise ValueError(f"int8 conv needs symmetric strides, padding and dilation, got {strides}, "
+                         f"{padding}, {dilation}")
+    return int8_conv_unsigned(x, wq, sw, c, in_absmax, stride=s0, padding=p0, dilation=d0, relu=False,
                               out_dtype=out_dtype)

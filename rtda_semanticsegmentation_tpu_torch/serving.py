@@ -18,9 +18,10 @@ def make_serving_fn(model_cfg, augment_cfg, variables, precision: str = "bf16", 
     """``images_u8 (B, H, W, 3) -> trainId masks (B, H, W) uint8`` on ``device``.
 
     ``precision``: ``bf16`` | ``f32`` (the float forward in that compute
-    dtype) or ``int8`` (the PTQ path, BiSeNet-R18 only: ``variables`` must
-    carry the quantization statistics from ``models.quantize.calibrate``;
-    they are frozen here when ``freeze`` has not run). ``variables`` is the
+    dtype) or ``int8`` (the PTQ path on kernel K3, for every model:
+    ``variables`` must carry the quantization statistics from
+    ``models.quantize.calibrate``; they are frozen here when ``freeze`` has
+    not run). ``variables`` is the
     model's state_dict; the weights are loaded once, here. ``fused_conv3``
     (``bf16`` only) runs the 3x3 / stride-1 ConvBNs on K4, their BatchNorm
     folded once, here.

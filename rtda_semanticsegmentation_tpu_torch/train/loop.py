@@ -413,7 +413,8 @@ def run_experiment(cfg: ExperimentConfig, run_name: Optional[str] = None, measur
         state, start_epoch, resume_skip_steps, ious = _resume(trainer, state, say)
         best_per_class = ious if ious is not None else best_per_class
 
-    say(f"mode={cfg.train_mode} model={cfg.model.name}/{cfg.model.context_path} device={trainer.device} "
+    model = cfg.model.name if cfg.model.name == "deeplabv2" else f"{cfg.model.name}/{cfg.model.context_path}"
+    say(f"mode={cfg.train_mode} model={model} device={trainer.device} "
         f"steps/epoch={trainer.steps_per_epoch} max_iter={trainer.max_iter}")
 
     # --- optional trace of a few warm steps ---

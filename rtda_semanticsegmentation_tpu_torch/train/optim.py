@@ -7,6 +7,14 @@ into the gradient before the optimizer's own update, as
 package (not the decoupled decay of AdamW). Adam's ``eps`` sits outside the
 square root, as in ``optax.scale_by_adam``. The learning rate is set per
 step by the train step from the state's schedule.
+
+DeepLabV2's frozen BatchNorm (``freeze_bn``): JAX gives every ``bn/scale``
+and ``bn/bias`` a zero update through ``optax.set_to_zero`` (no step, no
+momentum, no decay) while their gradients are still taken and counted in
+``grad_norm``. Here those parameters keep ``requires_grad`` and stay out
+of the optimizer: it never touches them. The train step clears the
+gradients of the whole model (``model.zero_grad``), not only the
+optimizer's, so theirs do not add up from step to step.
 """
 
 from __future__ import annotations
@@ -14,6 +22,14 @@ from __future__ import annotations
 import torch
 
 from ..config import AdversarialConfig, OptimizerConfig
+
+
+def is_bn_affine(name: str) -> bool:
+    """A BatchNorm scale or bias by its name, ``.../bn.weight`` or
+    ``.../bn.bias``: the JAX package's ``bn_param_labels`` rule on the
+    flax path (``.../bn/scale``, ``.../bn/bias``)."""
+    parts = name.split(".")
+    return len(parts) >= 2 and parts[-2] == "bn" and parts[-1] in ("weight", "bias")
 
 
 def build_generator_tx(cfg: OptimizerConfig, model: torch.nn.Module, freeze_bn: bool = False,
@@ -24,12 +40,14 @@ def build_generator_tx(cfg: OptimizerConfig, model: torch.nn.Module, freeze_bn: 
     decay (their own param group). With ``aux_weight == 0`` the aux heads
     ``supervision1``/``supervision2`` are exempt and also get no gradient,
     so the optimizer skips them (``grad is None``): they stay at their init,
-    as the JAX package's masked decay plus zero gradient keeps them."""
-    if freeze_bn:
-        raise NotImplementedError("freeze_bn (DeepLabV2's frozen BatchNorm) is not ported yet")
+    as the JAX package's masked decay plus zero gradient keeps them.
+    ``freeze_bn``: every BatchNorm scale and bias (:func:`is_bn_affine`)
+    is left out of the optimizer (module docstring)."""
     exempt = frozenset(decay_exempt)
     groups = {True: [], False: []}
     for name, p in model.named_parameters():
+        if freeze_bn and is_bn_affine(name):
+            continue
         groups[name.split(".", 1)[0] in exempt].append(p)
     params = [{"params": groups[False], "weight_decay": cfg.weight_decay}]
     if groups[True]:

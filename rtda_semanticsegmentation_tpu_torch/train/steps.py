@@ -18,17 +18,29 @@ steps. With ``fused_conv1`` D's first conv runs on kernels K5a-c: K5a on
 each of the three D forwards, K5b on the D step's two backward passes, K5c
 on G's path back through D.
 
+With ``train.remat`` each G forward runs under
+``torch.utils.checkpoint`` (where the JAX package applies
+``jax.checkpoint``): the backward recomputes the forward's activations
+instead of keeping them. The recompute holds the BatchNorm running
+statistics (``models/layers.py::running_stats_held``), so they move once a
+forward, as in JAX, whose checkpoint is functional.
+
 The step reads nothing back to the host, so it never waits for the device;
-its metrics are device tensors.
+its metrics are device tensors. It clears the gradients of the whole model
+before each backward, so a parameter outside the optimizer (DeepLabV2's
+frozen BatchNorm, ``train/optim.py``) holds only this step's gradient.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ExperimentConfig
+from ..models.layers import running_stats_held
 from ..ops.augment import augment_batch, normalize_u8
 from ..ops.losses import bce_with_logits, cross_entropy_with_ignore, lovasz_softmax, lovasz_softmax_binned
 from .state import TrainState
@@ -115,11 +127,15 @@ def _update(optimizer: torch.optim.Optimizer, lr: float) -> None:
     optimizer.step()
 
 
-def _apply_train(model: torch.nn.Module, x: torch.Tensor, aux: bool):
+def _apply_train(model: torch.nn.Module, x: torch.Tensor, aux: bool, remat: bool = False):
     """Train-mode forward of NCHW ``x``: (logits, sup1, sup2), the aux heads
-    None unless ``aux``."""
+    None unless ``aux``; with ``remat`` under ``checkpoint``, its recompute
+    holding the running statistics."""
     model.train()
-    return model(x, aux=aux)
+    if not remat:
+        return model(x, aux=aux)
+    return checkpoint(model, x, aux=aux, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), running_stats_held(model)))
 
 
 def _seg_loss(logits, labels, cfg: ExperimentConfig, aux: Tuple = ()) -> Tuple[torch.Tensor, Metrics]:
@@ -163,8 +179,7 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
     ``watch/g/<module>/{param,grad}_norm`` (and ``watch/d/...``), the
     parameters' norms taken after the update.
     """
-    if cfg.train.remat:
-        raise NotImplementedError("train.remat is not ported to the PyTorch package yet")
+    remat = cfg.train.remat
     adversarial = cfg.adversarial.enabled
     if adversarial and cfg.adversarial.disc_downsample < 1:
         raise ValueError(
@@ -181,9 +196,9 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
         images, labels = _prep_source(batch, generator, cfg)
         # NHWC -> NCHW view: channels_last memory, which the convs read as it is
         x = images.to(compute_dtype).permute(0, 3, 1, 2)
-        logits, sup1, sup2 = _apply_train(state.model, x, use_aux)
+        logits, sup1, sup2 = _apply_train(state.model, x, use_aux, remat)
         loss, parts = _seg_loss(logits, labels, cfg, aux=(sup1, sup2))
-        state.optimizer.zero_grad(set_to_none=True)
+        state.model.zero_grad(set_to_none=True)
         loss.backward()
         grad_norm = _grad_norm(state.model)
         _update(state.optimizer, state.schedule(state.step))
@@ -205,15 +220,15 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
         g, d = state.model, state.discriminator
         # one G forward per domain, source first (BatchNorm statistics in that
         # order); its graph serves G's backward
-        pred_s, sup1, sup2 = _apply_train(g, images_s.to(compute_dtype).permute(0, 3, 1, 2), use_aux)
-        pred_t, _, _ = _apply_train(g, images_t.to(compute_dtype).permute(0, 3, 1, 2), False)
+        pred_s, sup1, sup2 = _apply_train(g, images_s.to(compute_dtype).permute(0, 3, 1, 2), use_aux, remat)
+        pred_t, _, _ = _apply_train(g, images_t.to(compute_dtype).permute(0, 3, 1, 2), False, remat)
         pool = cfg.adversarial.disc_downsample
         sm_t_live = _disc_input(pred_t, pool, compute_dtype)
 
         # D first, on the detached maps
         sm_s = _disc_input(pred_s.detach(), pool, compute_dtype)
         sm_t = sm_t_live.detach()
-        state.d_optimizer.zero_grad(set_to_none=True)
+        d.zero_grad(set_to_none=True)
         loss_d = 0.5 * (bce_with_logits(d(sm_s), REAL_LABEL) + bce_with_logits(d(sm_t), FAKE_LABEL))
         loss_d.backward()
         grad_norm_d = _grad_norm(d)
@@ -227,7 +242,7 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
         finally:
             d.requires_grad_(True)
         loss = loss_seg + cfg.adversarial.lambda_adv * loss_adv
-        state.optimizer.zero_grad(set_to_none=True)
+        g.zero_grad(set_to_none=True)
         loss.backward()
         grad_norm = _grad_norm(g)
         _update(state.optimizer, state.schedule(state.step))

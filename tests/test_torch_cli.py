@@ -122,6 +122,23 @@ def test_train_cli_end_to_end_on_cpu(tmp_path):
     assert cfg.data.adversarial_target_dataset == "synthetic" and cfg.train_mode == "adversarial_lovasz"
 
 
+def test_train_cli_trains_deeplabv2_with_the_final_int8_eval(tmp_path):
+    """The ``deeplabv2_cityscapes`` preset (SGD, normalization only, frozen
+    BatchNorm affines) through the CLI on synthetic data, then the int8
+    evaluation of the best model: its report carries ``int8_miou``, and the
+    BatchNorm affines are the initial ones."""
+    report = ttrain.main(_train_argv(tmp_path, "deeplab", [
+        "--preset", "deeplabv2_cityscapes", "--final_int8_eval", "--no_perf"]))
+    assert report["global_step"] == 2
+    cfg = report["trainer"].cfg
+    assert (cfg.model.name, cfg.optimizer.name, cfg.augment.pipeline) == ("deeplabv2", "sgd", "no_new_aug")
+    assert 0.0 <= report["int8_miou"] <= 1.0 and "int8_miou_delta" in report
+    model = report["trainer"].model
+    bn = model.resnet.layer3_5.conv2.bn
+    assert torch.equal(bn.weight, torch.ones_like(bn.weight)) and torch.equal(bn.bias, torch.zeros_like(bn.bias))
+    assert not torch.equal(bn.running_mean, torch.zeros_like(bn.running_mean))
+
+
 @pytest.mark.parametrize("restore", ["best", "latest"])
 def test_predict_serves_a_trained_checkpoint(tmp_path, restore):
     """Train 2 steps (saving both streams), then predict from the checkpoint:

@@ -59,6 +59,37 @@ def test_int8_conv_kernel_matches_plain_version(k, s, p, C, CO):
     assert k3.copies == before[1] + 3 * (1 + 2 * copy_x)
 
 
+# (stride, dilation, C, CO): DeepLabV2's dilated 3x3 convs (padding =
+# dilation), narrowed, at both strides, on the N = 128 and N = 24 tiles
+DILATED = [(1, 2, 128, 128), (1, 4, 64, 48), (2, 2, 32, 19), (2, 4, 48, 24), (1, 4, 16, 19)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d,C,CO", DILATED)
+def test_int8_conv_kernel_dilated_matches_plain_version(s, d, C, CO):
+    """Bit-identical at dilation 2 and 4 (the taps d apart, the zero-code
+    border correction over the dilated taps), bf16 and s8 outputs; a
+    dilation whose im2col box corner leaves the 8-bit range is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.RandomState(7000 + 10 * d + s + C)
+    dev = torch.device("cuda")
+    xq = torch.from_numpy(rng.randint(-127, 128, (2, 15, 17, C)).astype(np.int8)).to(dev)
+    wq = torch.from_numpy(rng.randint(-127, 128, (3, 3, C, CO)).astype(np.int8)).to(dev)
+    a = torch.from_numpy(rng.rand(CO).astype(np.float32) * 1e-4).to(dev)
+    b = torch.from_numpy(rng.randn(CO).astype(np.float32)).to(dev)
+    inv = torch.from_numpy((rng.rand(CO).astype(np.float32) + 0.5) * 50).to(dev)
+    kmajor = k3.kmajor_weights(wq)
+    for inv_out, relu, dt in ((None, False, torch.bfloat16), (inv, True, torch.bfloat16)):
+        kw = dict(stride=s, padding=d, dilation=d, relu=relu, out_dtype=dt)
+        want = k3.int8_conv_plain(xq, wq, a, b, inv_out, **kw)
+        got = k3.int8_conv(xq, wq, a, b, inv_out, kmajor=kmajor, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.equal(got, want), (relu, inv_out is not None)
+    with pytest.raises(ValueError, match="dilation"):
+        k3.int8_conv(xq, wq, a, b, stride=1, padding=127, dilation=129, relu=False, kmajor=kmajor)
+
+
 def _lovasz_case(seed, n, ignore_frac, kind="spread"):
     """(2, 19, n) probabilities and labels: ``spread`` a softmax of
     3 * randn logits; ``uniform`` p = 1/C everywhere (every background pixel

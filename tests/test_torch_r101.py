@@ -17,6 +17,9 @@ Tolerances, each with its reason:
 - f32 masks served by the port equal the argmax of JAX's logits at every
   pixel whose top-2 JAX logits lie more than 1e-3 apart (within that margin
   the f32 rounding differences may flip the argmax).
+
+Their training and int8 serving against JAX: ``tests/test_torch_r101_train.py``
+and ``tests/test_torch_r101_int8.py``.
 """
 
 import dataclasses
@@ -39,7 +42,7 @@ from rtda_semanticsegmentation_tpu_torch.kernels import conv3x3 as k4
 from rtda_semanticsegmentation_tpu_torch.models.convert import from_jax_variables, to_jax_variables
 from rtda_semanticsegmentation_tpu_torch.models.deeplabv2 import DeepLabV2
 from rtda_semanticsegmentation_tpu_torch.models.factory import build_model, init_model, load_variables
-from rtda_semanticsegmentation_tpu_torch.models.layers import ConvBN, fold_kernel_operands
+from rtda_semanticsegmentation_tpu_torch.models.layers import ConvBN, QuantConv, fold_kernel_operands
 from rtda_semanticsegmentation_tpu_torch.models.quantize import calibrate
 from rtda_semanticsegmentation_tpu_torch.ops.augment import normalize_u8
 from rtda_semanticsegmentation_tpu_torch.serving import make_serving_fn
@@ -253,23 +256,34 @@ def test_predict_serves_the_r101_models(tmp_path, flags):
     for name, size in [("a", (60, 40)), ("b", (48, 32))]:
         mask = Image.open(out / f"{name}_trainids.png")
         assert mask.size == size and np.asarray(mask).max() < 19
-    with pytest.raises(NotImplementedError, match="not ported"):
-        predict_main(["--images", str(d), "--output", str(tmp_path / "q"), "--device", "cpu",
-                      "--precision", "int8", *flags[:2]])
+    # int8, calibrated on the first batch, on the s8 conv's plain version
+    rc = predict_main(["--images", str(d), "--output", str(tmp_path / "q"), "--size", "32", "64",
+                       "--batch_size", "2", "--calib_batches", "1", "--device", "cpu",
+                       "--precision", "int8", *flags[:2]])
+    assert rc == 0
+    for name, size in [("a", (60, 40)), ("b", (48, 32))]:
+        mask = Image.open(tmp_path / "q" / f"{name}_trainids.png")
+        assert mask.size == size and np.asarray(mask).max() < 19
 
 
 @pytest.mark.parametrize("fields", [dict(context_path="resnet101"), dict(name="deeplabv2")])
 def test_unported_r101_modes_raise(fields):
-    """Training either model and int8-serving it are not ported; K4 takes
-    neither f32 nor a train graph."""
+    """Training either model and int8-serving it are ported: the train
+    model builds in train mode and returns ``(logits, aux1, aux2)``, and
+    the calibration model calibrates. What still raises: K4 takes neither
+    f32 nor a train graph, and an unknown model."""
     cfg = tconfig.ModelConfig(compute_dtype="bfloat16", **fields)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(cfg, device="cpu", train=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(dataclasses.replace(cfg, quant="calib"), device="cpu")
+    train_model = build_model(dataclasses.replace(cfg, compute_dtype="float32"), device="cpu", train=True)
+    init_model(train_model, torch.Generator().manual_seed(0))
+    assert train_model.training
+    with torch.no_grad():
+        logits, *_ = train_model(torch.zeros(2, 3, 32, 64), aux=False)
+    assert tuple(logits.shape) == (2, 19, 32, 64)
+    assert sum(isinstance(m, QuantConv) for m in
+               build_model(dataclasses.replace(cfg, quant="calib"), device="cpu").modules()) > 90
     variables = init_model(build_model(cfg, device="cpu"), torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        calibrate(cfg, variables, [torch.zeros(1, 32, 64, 3)], device="cpu")
+    cal = calibrate(cfg, variables, [torch.zeros(1, 32, 64, 3)], device="cpu")
+    assert sum(k.endswith(".in_absmax") for k in cal) > 90
     with pytest.raises(ValueError, match="bf16"):
         make_serving_fn(cfg, tconfig.AugmentConfig(), variables, "f32", device="cpu", fused_conv3=True)
     with pytest.raises(ValueError, match="eval path"):

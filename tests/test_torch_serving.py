@@ -192,7 +192,9 @@ PORT_ENTRY_MODULES = (
 def test_port_imports_no_jax(tmp_path):
     """After each import of the port's modules and scripts, after the
     adversarial train step and its fused discriminator are built, after
-    DeepLabV2 is built with its 3x3 convs on K4, and after a 1-epoch, 2-step
+    DeepLabV2 is built with its 3x3 convs on K4, after the DeepLabV2 train
+    step with remat and its frozen-BatchNorm optimizer and the R101 int8
+    models (frozen and not) are built, and after a 1-epoch, 2-step
     ``run_experiment`` on the CPU (synthetic data, validation, checkpoints,
     the report), no jax, jaxlib, flax or optax module and nothing of the JAX
     package is loaded."""
@@ -213,11 +215,22 @@ def test_port_imports_no_jax(tmp_path):
         "build_discriminator(cfg.model, device='cpu', fused_conv1=True)\n"
         "make_train_step(cfg, lambda t: 1e-4, lambda t: 2.5e-5)\n"
         "check('the adversarial step')\n"
+        "import dataclasses as dc\n"
         "from rtda_semanticsegmentation_tpu_torch.config import ModelConfig\n"
         "from rtda_semanticsegmentation_tpu_torch.models.factory import build_model\n"
         "build_model(ModelConfig(name='deeplabv2'), device='cpu', fused_conv3=True)\n"
         "check('DeepLabV2 with K4')\n"
-        "import dataclasses as dc\n"
+        "from rtda_semanticsegmentation_tpu_torch.models.quantize import quantized_model\n"
+        "from rtda_semanticsegmentation_tpu_torch.train.optim import build_generator_tx\n"
+        "cfg = get_preset('deeplabv2_cityscapes')\n"
+        "cfg = cfg.replace(train=dc.replace(cfg.train, remat=True))\n"
+        "g = build_model(cfg.model, device='cpu', train=True)\n"
+        "build_generator_tx(cfg.optimizer, g, freeze_bn=True)\n"
+        "make_train_step(cfg, lambda t: 2.5e-4)\n"
+        "check('the DeepLabV2 train step with remat')\n"
+        "quantized_model(ModelConfig(name='deeplabv2'), frozen=False, device='cpu')\n"
+        "quantized_model(ModelConfig(context_path='resnet101'), device='cpu')\n"
+        "check('the R101 int8 models')\n"
         "from rtda_semanticsegmentation_tpu_torch.train.loop import run_experiment\n"
         "cfg = get_preset('bisenet_source_small')\n"
         f"root = {str(tmp_path)!r}\n"

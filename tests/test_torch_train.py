@@ -212,16 +212,19 @@ def test_aux_heads_decay_exemption(aux_weight):
 
 
 def test_unported_modes_raise():
-    """What the port has not ported yet raises: ``train.remat``, training
-    DeepLabV2 (its preset builds; its train model does not) and its
-    frozen-BatchNorm optimizer mask. The watch metrics are ported: a config
-    that asks for them builds a step."""
+    """What earlier slices left unported is ported now, and builds:
+    ``train.remat``, training DeepLabV2 from its preset and its
+    frozen-BatchNorm optimizer, which holds every parameter but the
+    BatchNorm affines. The watch metrics are ported: a config that asks for
+    them builds a step. (The steps themselves: ``tests/test_torch_r101_train.py``.)"""
     _, tcfg = _cfgs("vanilla")
     sched = poly_lr_schedule(1e-4, MAX_ITER)
     assert tcfg.obs.watch_freq_steps > 0 and callable(make_train_step(tcfg, sched))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_train_step(tcfg.replace(train=tconfig.TrainConfig(remat=True)), sched)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(tconfig.get_preset("deeplabv2_cityscapes").model, device="cpu", train=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_generator_tx(tcfg.optimizer, build_model(tcfg.model, device="cpu"), freeze_bn=True)
+    assert callable(make_train_step(tcfg.replace(train=tconfig.TrainConfig(remat=True)), sched))
+    deeplab = build_model(tconfig.get_preset("deeplabv2_cityscapes").model, device="cpu", train=True)
+    assert deeplab.training
+    model = build_model(tcfg.model, device="cpu")
+    opt = build_generator_tx(tcfg.optimizer, model, freeze_bn=True)
+    held = {id(p) for group in opt.param_groups for p in group["params"]}
+    names = [n for n, p in model.named_parameters() if id(p) not in held]
+    assert names and all(n.rsplit(".", 2)[-2:] in (["bn", "weight"], ["bn", "bias"]) for n in names)
