@@ -138,6 +138,21 @@ failure:
    operand copy. K3's count in the kernels line adds these launches and
    phase 8's to phases 4 and 9's; its times are the sums per forward of
    R18, BiSeNet-R101 and DeepLabV2.
+12. artifact (run after phase 4): serving artifacts at 512x1024, seeded
+   random weights. BiSeNet-R18 in bf16, int8 (calibrated on 2 batches) and
+   bf16 with ``fused_conv3``, each exported on the card with a symbolic
+   batch (``serving.export_serving``), saved into build/ and loaded
+   (``load_artifact``); then DeepLabV2 int8, calibrated and frozen on the
+   card, exported on the CPU and loaded onto the card. Each serves 4
+   requests of 8 frames and one of 1. Gates: masks bit-equal to
+   ``make_serving_fn``'s on the same frames; exactly 15 K3 launches per
+   R18 int8 request, 14 K4 per ``fused_conv3`` request, 95 K3 per
+   DeepLabV2 request and none of the other kernel, no operand copy.
+   Prints export and load seconds, MB on disk, and ms/request and img/s
+   through the artifact beside the eager path's (in turns: eager,
+   artifact, artifact, eager), with the card's name and power limit. Phase
+   4 also shows that K3 launches nothing while ``k3_plain`` swaps it.
+   K3's and K4's counts in the kernels line add these launches.
 
 The last two lines are a JSON summary of the kernels and the result line.
 """
@@ -153,6 +168,7 @@ import os
 import re
 import shutil
 import subprocess
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -175,7 +191,13 @@ from rtda_semanticsegmentation_tpu_torch.models.factory import (
 from rtda_semanticsegmentation_tpu_torch.models.quantize import calibrate, freeze, quantized_model
 from rtda_semanticsegmentation_tpu_torch.ops.augment import normalize_u8
 from rtda_semanticsegmentation_tpu_torch.ops.losses import _binned_lovasz_forward, lovasz_softmax_binned
-from rtda_semanticsegmentation_tpu_torch.serving import make_serving_fn
+from rtda_semanticsegmentation_tpu_torch.serving import (
+    ARTIFACT_GRAPH,
+    export_serving,
+    load_artifact,
+    make_serving_fn,
+    save_artifact,
+)
 from rtda_semanticsegmentation_tpu_torch.train.optim import build_discriminator_tx, build_generator_tx, is_bn_affine
 from rtda_semanticsegmentation_tpu_torch.train.schedule import poly_lr_schedule
 from rtda_semanticsegmentation_tpu_torch.train.state import TrainState
@@ -915,8 +937,14 @@ def phase_slice() -> tuple:
         if not bool(torch.isfinite(lg).all()):
             raise AssertionError(f"{what}: non-finite logits")
 
+    before = k3.launches
     with k3_plain():
         masks_plain = [serve_int8(x) for x in requests]
+    torch.cuda.synchronize()
+    print(f"int8 serving with K3 swapped for its plain version: {k3.launches - before} K3 launches "
+          f"over {REQUESTS} requests")
+    if k3.launches != before:
+        raise AssertionError("the k3_plain seam still launched K3")
     agree_plain = float(np.mean([(a == b).float().mean().item() for a, b in zip(masks_int8, masks_plain)]))
     agree_bf16 = float(np.mean([(a == b).float().mean().item() for a, b in zip(masks_int8, masks_bf16)]))
     print(f"int8 masks vs the plain-version int8 masks: agreement {agree_plain:.6f}")
@@ -930,6 +958,108 @@ def phase_slice() -> tuple:
     k4_launches = _k4_serving("BiSeNet-R18", cfg, variables, requests, K4_CONVS["r18"])
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches, k4_launches
+
+
+# the artifact phase: (label, precision, fused_conv3) of the R18 artifacts
+# exported on the card, each with a symbolic batch
+ARTIFACT_KINDS = (("R18 bf16", "bf16", False), ("R18 int8", "int8", False),
+                  ("R18 bf16 fused_conv3", "bf16", True))
+
+
+def _artifact(cfg, variables, precision, fused, export_device) -> tuple:
+    """Export with a symbolic batch on ``export_device``, save into a
+    temporary directory under build/, load onto the card. Returns (the
+    loaded fn, {export_s, load_s, mb})."""
+    aug = AugmentConfig()
+    t0 = time.perf_counter()
+    exported, meta = export_serving(cfg, aug, variables, H, W, precision=precision, fused_conv3=fused,
+                                    device=export_device)
+    export_s = time.perf_counter() - t0
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build") as path:
+        save_artifact(path, exported, meta)
+        mb = os.path.getsize(os.path.join(path, ARTIFACT_GRAPH)) / 1e6
+        t0 = time.perf_counter()
+        fn, loaded = load_artifact(path, device=DEV)
+        load_s = time.perf_counter() - t0
+    if loaded["platforms"] != [torch.device(export_device).type] or loaded["batch"] is not None:
+        raise AssertionError(f"artifact meta {loaded}")
+    return fn, {"export_s": export_s, "load_s": load_s, "mb": mb}
+
+
+def _artifact_requests(what, fn, eager, requests, k3_per, k4_per, card) -> tuple:
+    """Serve ``requests`` and one b1 request through the artifact ``fn``:
+    masks bit-equal to the eager path's, exactly ``k3_per`` K3 and
+    ``k4_per`` K4 launches a request and no operand copy. Times both in
+    turns (eager, artifact, artifact, eager). Returns the K3 and K4
+    launches."""
+    masks_eager = [eager(x) for x in requests] + [eager(requests[0][:1])]
+    # the main path: the kernels' launches during the artifact's requests only
+    k3.launches = k3.copies = k4.launches = k4.copies = 0
+    masks = [fn(x) for x in requests] + [fn(requests[0][:1])]
+    torch.cuda.synchronize()
+    n3, n4 = k3.launches, k4.launches
+    n = len(masks)
+    print(f"{what} artifact: {n3} K3 and {n4} K4 launches over {n} requests (the last at b1), "
+          f"{k3.copies + k4.copies} operand copies")
+    if (n3, n4) != (k3_per * n, k4_per * n) or k3.copies or k4.copies:
+        raise AssertionError(f"{what} artifact: expected {k3_per * n} K3 and {k4_per * n} K4 launches and no "
+                             f"operand copy, got {n3}, {n4}, copies {k3.copies + k4.copies}")
+    for m, want in zip(masks, masks_eager):
+        if m.dtype != torch.uint8 or m.shape != want.shape or not torch.equal(m, want):
+            raise AssertionError(f"{what} artifact: masks differ from the eager path's")
+    for m in masks[:-1]:
+        _check_masks(m, what)
+    print(f"{what} artifact: masks of {n} requests bit-equal to make_serving_fn's")
+    times = {"eager": [], "artifact": []}
+    for name in ("eager", "artifact", "artifact", "eager"):
+        f = fn if name == "artifact" else eager
+        times[name].append(cuda_ms(lambda: f(requests[0]), 10))
+    for name, t in times.items():
+        ms = float(np.mean(t))
+        print(f"serve {what} b{BATCH} {H}x{W} through the {name} path: {ms:.3f} ms/request "
+              f"({' / '.join(f'{v:.3f}' for v in t)}), {BATCH * 1e3 / ms:.1f} img/s [{card}]")
+    return n3, n4
+
+
+def phase_artifact(card: str) -> tuple:
+    """Serving artifacts at b8 512x1024, seeded random weights: BiSeNet-R18
+    in bf16, int8 (calibrated on 2 batches) and bf16 with fused_conv3,
+    exported on the card with a symbolic batch, saved, loaded and served;
+    then DeepLabV2 int8, calibrated and frozen on the card, exported on the
+    CPU and served on the card. Returns the K3 and K4 launches."""
+    aug = AugmentConfig()
+    requests = [_frames(400 + r) for r in range(REQUESTS)]
+    calib = [normalize_u8(_frames(s), aug) for s in (1, 2)]
+    launches3 = launches4 = 0
+    cfg = ModelConfig(compute_dtype="bfloat16")
+    variables = init_model(build_model(cfg, device="cpu"), torch.Generator().manual_seed(0))
+    variables = {k: v.to(DEV) for k, v in variables.items()}
+    calibrated = calibrate(cfg, variables, calib, device=DEV)
+    for what, precision, fused in ARTIFACT_KINDS:
+        v = calibrated if precision == "int8" else variables
+        fn, info = _artifact(cfg, v, precision, fused, DEV)
+        print(f"{what} artifact exported on the card in {info['export_s']:.2f} s, loaded in "
+              f"{info['load_s']:.2f} s, {info['mb']:.1f} MB on disk")
+        eager = make_serving_fn(cfg, aug, v, precision, device=DEV, fused_conv3=fused)
+        n3, n4 = _artifact_requests(what, fn, eager, requests, QUANT_CONVS if precision == "int8" else 0,
+                                    K4_CONVS["r18"] if fused else 0, card)
+        launches3, launches4 = launches3 + n3, launches4 + n4
+        del fn, eager
+    del variables, calibrated
+
+    what = "DeepLabV2 int8 (exported on the CPU)"
+    cfg = ModelConfig(name="deeplabv2", compute_dtype="bfloat16")
+    variables = init_model(build_model(cfg, device="cpu"), torch.Generator().manual_seed(0))
+    variables = {k: v.to(DEV) for k, v in variables.items()}
+    frozen = freeze(cfg, calibrate(cfg, variables, calib, device=DEV))
+    eager = make_serving_fn(cfg, aug, frozen, "int8", device=DEV)
+    fn, info = _artifact(cfg, {k: v.cpu() for k, v in frozen.items()}, "int8", False, "cpu")
+    print(f"{what}: exported in {info['export_s']:.2f} s, moved to the card and loaded in {info['load_s']:.2f} s, "
+          f"{info['mb']:.1f} MB on disk")
+    n3, _ = _artifact_requests(what, fn, eager, requests, R101_QUANT_CONVS["deeplabv2"], 0, card)
+    del fn, eager, variables, frozen
+    return launches3 + n3, launches4
 
 
 def phase_r101() -> int:
@@ -1610,13 +1740,16 @@ def _k3_entry(times: list) -> dict:
 
 def main() -> None:
     t0 = time.perf_counter()
-    phase_device()
+    card = phase_device()
     phase_build()
     k3_times = phase_kernels()
     lovasz_times = phase_lovasz_kernels()
     conv4_times = phase_conv4_kernels()
     conv3_times = phase_conv3_kernels()
     k3_launches, k4_launches = phase_slice()
+    artifact_k3, artifact_k4 = phase_artifact(card)
+    k3_launches += artifact_k3
+    k4_launches += artifact_k4
     k4_launches += phase_r101()
     r101_k3_launches, r101_k3_times = phase_r101_int8()
     k3_launches += r101_k3_launches

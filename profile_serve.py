@@ -2,6 +2,7 @@
 """Where the serving time of the PyTorch port goes on one CUDA GPU.
 
     python3 profile_serve.py [--model r18|r101|deeplabv2] [--fused_conv3]
+                             [--artifact [--precision bf16|int8]]
 
 Builds one model of ``chip_smoke.py`` at 512x1024, batch 8, seeded random
 weights: BiSeNet-R18 (``r18``, the default), BiSeNet-R101 (``r101``) or
@@ -9,7 +10,11 @@ DeepLabV2 (``deeplabv2``). Without ``--fused_conv3`` it profiles bf16,
 int8, int8 and bf16 (the model is calibrated on 2 synthetic batches and
 frozen first); with ``--fused_conv3``
 it profiles bf16 with the 3x3 ConvBNs on cuDNN and on K4 in turns (cuDNN,
-K4, K4, cuDNN). The repeats show the spread. For each run it prints:
+K4, K4, cuDNN); with ``--artifact`` it profiles ``--precision`` (with
+``--fused_conv3``: bf16 on K4) through ``make_serving_fn`` and through the
+artifact ``serving.export_serving`` makes of it on the card (symbolic
+batch, saved and loaded) in turns (eager, artifact, artifact, eager). The
+repeats show the spread. For each run it prints:
 
 - ms/request by CUDA events, 10 requests after 3 of warm-up, with no
   profiler attached;
@@ -103,25 +108,40 @@ def main() -> None:
     parser.add_argument("--model", choices=tuple(MODELS), default="r18")
     parser.add_argument("--fused_conv3", action="store_true",
                         help="profile bf16 with the 3x3 ConvBNs on cuDNN and on K4, in turns")
+    parser.add_argument("--artifact", action="store_true",
+                        help="profile --precision eagerly and through its exported artifact, in turns")
+    parser.add_argument("--precision", choices=("bf16", "int8"), default="bf16")
     args = parser.parse_args()
+    if args.artifact and args.fused_conv3 and args.precision != "bf16":
+        parser.error("--fused_conv3 serves bf16 only")
     smi = cs.phase_device()
     aug, cfg = AugmentConfig(), ModelConfig(compute_dtype="bfloat16", **MODELS[args.model])
     variables = init_model(build_model(cfg, device="cpu"), torch.Generator().manual_seed(0))
     variables = {k: v.to(cs.DEV) for k, v in variables.items()}
-    quantizer = args.model == "r18" and not args.fused_conv3
-    if args.fused_conv3:
-        plan = (("bf16", False), ("bf16", True), ("bf16", True), ("bf16", False))
+    quantizer = args.model == "r18" and not args.fused_conv3 and not args.artifact
+    if args.artifact:
+        p, f = args.precision, args.fused_conv3
+        plan = ((p, f, False), (p, f, True), (p, f, True), (p, f, False))
+    elif args.fused_conv3:
+        plan = (("bf16", False, False), ("bf16", True, False), ("bf16", True, False), ("bf16", False, False))
     else:
+        plan = (("bf16", False, False), ("int8", False, False), ("int8", False, False), ("bf16", False, False))
+    if any(precision == "int8" for precision, _, _ in plan):
         calib = [normalize_u8(cs._frames(s), aug) for s in (1, 2)]
         variables = freeze(cfg, calibrate(cfg, variables, calib, device=cs.DEV))
-        plan = (("bf16", False), ("int8", False), ("int8", False), ("bf16", False))
     x = cs._frames(100)
+    serves = {}
+    for precision, fused, artifact in set(plan):
+        if artifact:
+            serves[precision, fused, artifact] = cs._artifact(cfg, variables, precision, fused, cs.DEV)[0]
+        else:
+            serves[precision, fused, artifact] = make_serving_fn(cfg, aug, variables, precision, device=cs.DEV,
+                                                                 fused_conv3=fused)
     runs = []
-    for precision, fused in plan:
-        serve = make_serving_fn(cfg, aug, variables, precision, device=cs.DEV, fused_conv3=fused)
-        r = profile_precision(serve, x)
-        label = f"{precision} K4" if fused else precision
-        runs.append({"model": args.model, "precision": precision, "fused_conv3": fused, **r})
+    for precision, fused, artifact in plan:
+        r = profile_precision(serves[precision, fused, artifact], x)
+        label = f"{precision}{' K4' if fused else ''}{' artifact' if artifact else ''}"
+        runs.append({"model": args.model, "precision": precision, "fused_conv3": fused, "artifact": artifact, **r})
         print(f"== {args.model} {label}: {r['ms']:.3f} ms/request (CUDA events, no profiler); "
               f"kernel time {r['kernel_ms']:.3f} ms/request, "
               f"{r['kernels_per_request']:.1f} kernels/request, idle share {r['idle_share']:.3f}")

@@ -4,10 +4,11 @@ Same flags and outputs as the JAX package's ``cli/predict.py``: decode ->
 resize -> normalize -> forward (bf16, f32, or int8 PTQ calibrated on the
 first ``--calib_batches`` batches, on kernel K3) -> argmax ->
 trainId PNG + colorized PNG (+ overlay), for BiSeNet (``resnet18`` or
-``resnet101``) and DeepLabV2. ``--device`` picks the device, the counterpart of the JAX
-package's ``JAX_PLATFORMS``: ``cuda`` (the default) needs a CUDA device and
-raises without one; ``cpu`` runs there, where the int8 convs take the
-kernel's plain version.
+``resnet101``) and DeepLabV2, or through an artifact that ``cli/export.py``
+wrote (``--artifact``). ``--device`` picks the device, the counterpart of
+the JAX package's ``JAX_PLATFORMS``: ``cuda`` (the default) needs a CUDA
+device and raises without one; ``cpu`` runs there, where the int8 convs
+take the kernel's plain version.
 
 Usage::
 
@@ -58,7 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--images", required=True, help="Image file, directory, or glob.")
     p.add_argument("--output", required=True, help="Output directory.")
     p.add_argument("--artifact", default=None,
-                   help="Serve from an AOT artifact (not ported yet).")
+                   help="Serve from an artifact exported by cli/export instead of a checkpoint; "
+                        "model/size/precision flags are then read from the artifact's metadata.")
     p.add_argument("--model_name", choices=("bisenet", "deeplabv2"), default="bisenet")
     p.add_argument("--bisenet_context_path", dest="context_path",
                    choices=("resnet18", "resnet101"), default="resnet18")
@@ -151,21 +153,36 @@ def _restore_variables(args, mcfg: ModelConfig, device) -> dict:
     return variables
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet")
+def _load_variables(args, mcfg: ModelConfig, device) -> dict:
+    """The model's variables on ``device``: restored from ``--checkpoint_dir``,
+    else the seeded init (seed 0) with ``--pretrained_backbone`` grafted in."""
+    from ..models.convert import load_npz_into_state
+    from ..models.factory import build_model, init_model
+
+    if args.checkpoint_dir is not None:
+        return _restore_variables(args, mcfg, device)
+    variables = init_model(build_model(mcfg, device), torch.Generator().manual_seed(0))
+    if args.pretrained_backbone:
+        return load_npz_into_state(variables, args.pretrained_backbone, mcfg.name)
+    print("WARNING: no --checkpoint_dir; predicting with random weights", file=sys.stderr)
+    return variables
+
+
+def _check_device(name: str) -> torch.device:
+    if name == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")
+    return torch.device(name)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    from ..models.convert import load_npz_into_state
-    from ..models.factory import build_model, init_model
     from ..models.quantize import calibrate, freeze
     from ..ops.augment import normalize_u8
     from ..serving import make_serving_fn
 
     if args.artifact:
-        raise _not_ported("--artifact (serving artifacts)")
+        return _predict_with_artifact(args)
 
     h, w = args.size
     dtype = {"bf16": "bfloat16", "f32": "float32", "int8": "bfloat16"}[args.precision]
@@ -178,9 +195,7 @@ def main(argv=None) -> int:
         **({"quant_skip": tuple(args.quant_skip)} if args.quant_skip is not None else {}),
     )
     aug = AugmentConfig()
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")
-    device = torch.device(args.device)
+    device = _check_device(args.device)
 
     paths = collect_images(args.images)
     if not paths:
@@ -190,14 +205,7 @@ def main(argv=None) -> int:
           f"({args.precision}, {h}x{w}, batch {args.batch_size}, {device})",
           file=sys.stderr)
 
-    if args.checkpoint_dir is not None:
-        variables = _restore_variables(args, mcfg, device)
-    else:
-        variables = init_model(build_model(mcfg, device), torch.Generator().manual_seed(0))
-        if args.pretrained_backbone:
-            variables = load_npz_into_state(variables, args.pretrained_backbone, mcfg.name)
-        else:
-            print("WARNING: no --checkpoint_dir; predicting with random weights", file=sys.stderr)
+    variables = _load_variables(args, mcfg, device)
 
     def decode(path):
         return decode_resize(path, w, h)
@@ -226,6 +234,40 @@ def main(argv=None) -> int:
             pad = np.zeros((b - imgs.shape[0], h, w, 3), np.uint8)
             imgs = np.concatenate([imgs, pad])
         preds = serve(torch.from_numpy(imgs)).cpu().numpy()
+        written += _write_outputs(args, decoded, chunk, preds, stems, h, w)
+    print(f"wrote {written} prediction(s)", file=sys.stderr)
+    return 0
+
+
+def _predict_with_artifact(args) -> int:
+    """Serve a folder through an artifact (cli/export.py output) on
+    ``--device``."""
+    from ..serving import load_artifact
+
+    fn, meta = load_artifact(args.artifact, device=_check_device(args.device))
+    h = int(meta.get("height", args.size[0]))
+    w = int(meta.get("width", args.size[1]))
+    # a pinned-batch artifact dictates the batch size (tail batches are
+    # padded); a symbolic-batch artifact serves --batch_size directly
+    pinned = meta.get("batch")
+    b = int(pinned) if pinned else args.batch_size
+    paths = collect_images(args.images)
+    if not paths:
+        raise FileNotFoundError(f"no images found at {args.images!r}")
+    os.makedirs(args.output, exist_ok=True)
+    print(f"{len(paths)} image(s) -> {args.output} (artifact {meta.get('model', '?')}/"
+          f"{meta.get('precision', '?')}, {h}x{w}, batch {b}{' pinned' if pinned else ''}, {args.device})",
+          file=sys.stderr)
+    stems = _unique_stems(paths)
+    written = 0
+    for i in range(0, len(paths), b):
+        chunk = paths[i : i + b]
+        decoded = [decode_resize(p, w, h) for p in chunk]
+        imgs = np.stack([d[0] for d in decoded])
+        if pinned and imgs.shape[0] < b:
+            pad = np.zeros((b - imgs.shape[0], h, w, 3), np.uint8)
+            imgs = np.concatenate([imgs, pad])
+        preds = fn(imgs).cpu().numpy()
         written += _write_outputs(args, decoded, chunk, preds, stems, h, w)
     print(f"wrote {written} prediction(s)", file=sys.stderr)
     return 0

@@ -94,10 +94,12 @@ class DataConfig:
     adversarial_target_dataset: str = "cityscapes"
     adversarial_target_split: str = "train"
     synthetic_length: int = 64  # samples in the synthetic dataset
-    # the JAX package's native C++ decode and decoded-sample disk cache are
-    # not ported: 'auto' and 'off' decode with PIL, 'on' raises, and so does
-    # a decoded_cache_dir
+    # the native C++ host decode (data/native.py): 'auto' uses it when the
+    # library builds, 'on' requires it, 'off' forces PIL; both decode the
+    # same bits (tests/test_torch_native_data.py)
     native_decode: str = "auto"
+    # the decoded-sample disk cache (data/cache.py): decode each PNG once,
+    # then read the raw post-resize tensors; None = off
     decoded_cache_dir: Optional[str] = None
 
     def resolved_num_workers(self) -> int:

@@ -1,5 +1,5 @@
 """Dataset sources: path pairing, PNG decode, host-side resize (the port's
-copy of the JAX package's ``data/datasets.py``, PIL decode only).
+copy of the JAX package's ``data/datasets.py``).
 
 The host decodes and resizes to the static train size and emits uint8 HWC
 images and int32 trainId labels; normalization and augmentation run on the
@@ -12,9 +12,13 @@ device inside the train step.
 - Synthetic: label-correlated frames generated from a seed, the same bits
   as the JAX package's for the same seed and index.
 
-The JAX package's native C++ decode (``native_decode='on'``) and its
-decoded-sample disk cache (``decoded_cache_dir``) are not ported:
-:func:`build_dataset` raises for them.
+Two host decodes with identical results (``tests/test_torch_native_data.py``):
+the native C++ one (``data/native.py``, one GIL-released decode + resize
+call per file, bit-exact with PIL's BILINEAR / NEAREST) and PIL.
+``native_decode`` is ``'auto'`` (native when the library builds, else PIL
+with a warning), ``'on'`` (native or raise) or ``'off'`` (PIL).
+``decoded_cache_dir`` wraps a file dataset in the decoded-sample disk cache
+(``data/cache.py``).
 """
 
 from __future__ import annotations
@@ -48,13 +52,29 @@ def _decode_image(path: str) -> np.ndarray:
 
 
 class SegmentationDataset:
-    """A list of (image_path, label_path) pairs and their PIL decode."""
+    """A list of (image_path, label_path) pairs and their decode: native
+    or PIL, by ``native_decode``."""
 
     pairs: List[Tuple[str, str]]
     size: Tuple[int, int]  # (H, W)
+    native_decode: str = "auto"
 
     def __len__(self) -> int:
         return len(self.pairs)
+
+    def _native(self):
+        """The native module if enabled and available, else None; raises
+        under ``'on'`` with the build's reason."""
+        mode = self.native_decode
+        if mode == "off":
+            return None
+        from . import native
+
+        if native.available():
+            return native
+        if mode == "on":
+            raise RuntimeError(f"native_decode='on' but the fast path is unavailable: {native.unavailable_reason()}")
+        return None
 
     def _decode_label(self, path: str) -> np.ndarray:
         from PIL import Image
@@ -71,6 +91,12 @@ class SegmentationDataset:
     def load(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
         """(uint8 HWC image, int32 HW trainId label) at ``size``."""
         img_path, label_path = self.pairs[index]
+        nat = self._native()
+        if nat is not None:
+            try:
+                return nat.load_image(img_path, self.size), nat.load_label(label_path, self.size)
+            except OSError:
+                pass  # odd format (e.g. an RGB-mode or 16-bit label): PIL below
         img, label = _resize_pair(_decode_image(img_path), self._decode_label(label_path), self.size)
         if label.ndim != 2:
             raise ValueError(f"label for {img_path} is not 2D after load: {label.shape}")
@@ -80,8 +106,9 @@ class SegmentationDataset:
 class CityscapesDataset(SegmentationDataset):
     """Cityscapes with pre-generated ``*_gtFine_labelTrainIds.png`` labels."""
 
-    def __init__(self, root: str, split: str, size: Tuple[int, int]):
+    def __init__(self, root: str, split: str, size: Tuple[int, int], native_decode: str = "auto"):
         self.root, self.split, self.size = root, split, tuple(size)
+        self.native_decode = native_decode
         image_root = os.path.join(root, "images", split)
         if not os.path.isdir(image_root):
             raise FileNotFoundError(f"Cityscapes image directory not found: {image_root}")
@@ -111,8 +138,9 @@ class GTA5Dataset(SegmentationDataset):
     """GTA5 with same-name labels in ``labels_subdir``."""
 
     def __init__(self, root: str, labels_subdir: str = "labels_trainids", convert_on_the_fly: bool = False,
-                 size: Tuple[int, int] = (720, 1280)):
+                 size: Tuple[int, int] = (720, 1280), native_decode: str = "auto"):
         self.root, self.size = root, tuple(size)
+        self.native_decode = native_decode
         self.convert_on_the_fly = convert_on_the_fly
         image_root = os.path.join(root, "images")
         label_root = os.path.join(root, labels_subdir)
@@ -136,6 +164,15 @@ class GTA5Dataset(SegmentationDataset):
         if not self.convert_on_the_fly:
             return super().load(index)
         img_path, label_path = self.pairs[index]
+        nat = self._native()
+        if nat is not None:
+            from .labels import build_color_to_id_lut
+
+            try:
+                return (nat.load_image(img_path, self.size),
+                        nat.load_label(label_path, self.size, rgb_lut=build_color_to_id_lut()))
+            except OSError:
+                pass
         label = rgb_label_to_train_ids(_decode_image(label_path))
         img, label = _resize_pair(_decode_image(img_path), label, self.size)
         return img, label.astype(np.int32)
@@ -170,17 +207,24 @@ class SyntheticDataset(SegmentationDataset):
 
 
 def build_dataset(name: str, split: str, size: Tuple[int, int], data_cfg) -> SegmentationDataset:
-    """The dataset ``name`` (cityscapes | gta5 | synthetic) at ``size``."""
-    if getattr(data_cfg, "native_decode", "auto") == "on":
-        raise NotImplementedError("native_decode='on': the native C++ decode is not ported to the "
-                                  "PyTorch package yet ('auto' and 'off' decode with PIL)")
-    if getattr(data_cfg, "decoded_cache_dir", None):
-        raise NotImplementedError("decoded_cache_dir: the decoded-sample cache is not ported to the "
-                                  "PyTorch package yet")
+    """The dataset ``name`` (cityscapes | gta5 | synthetic) at ``size``.
+
+    ``data_cfg.decoded_cache_dir`` wraps the file datasets in the
+    decoded-sample disk cache (``data/cache.py``); synthetic data is
+    generated, never cached."""
+    native_mode = getattr(data_cfg, "native_decode", "auto")
     if name == "cityscapes":
-        return CityscapesDataset(data_cfg.cityscapes_path, split, size)
-    if name == "gta5":
-        return GTA5Dataset(data_cfg.gta5_path, data_cfg.gta5_labels_subdir, data_cfg.gta5_convert_on_the_fly, size)
-    if name == "synthetic":
+        ds = CityscapesDataset(data_cfg.cityscapes_path, split, size, native_decode=native_mode)
+    elif name == "gta5":
+        ds = GTA5Dataset(data_cfg.gta5_path, data_cfg.gta5_labels_subdir, data_cfg.gta5_convert_on_the_fly, size,
+                         native_decode=native_mode)
+    elif name == "synthetic":
         return SyntheticDataset(length=getattr(data_cfg, "synthetic_length", 64), size=size)
-    raise ValueError(f"unknown dataset {name!r}; options: cityscapes, gta5, synthetic")
+    else:
+        raise ValueError(f"unknown dataset {name!r}; options: cityscapes, gta5, synthetic")
+    cache_dir = getattr(data_cfg, "decoded_cache_dir", None)
+    if cache_dir:
+        from .cache import DecodedCacheDataset
+
+        ds = DecodedCacheDataset(ds, cache_dir)
+    return ds

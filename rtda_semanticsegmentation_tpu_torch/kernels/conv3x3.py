@@ -17,10 +17,10 @@ so the result is not an f32 conv even when ``x`` and ``w`` are f32.
 NHWC is already contiguous, so the model's permute costs nothing. ``w`` needs
 unit stride in CO; its rows may be padded (a ``[..., :CO]`` view of a wider
 buffer), which lets the port keep its weights bf16 with CO padded to a
-multiple of 8. On a CPU tensor it runs :func:`conv3x3_plain`; on a CUDA
-tensor it launches the kernel in ``csrc/conv3x3.cu`` (built on first use, see
-:mod:`.build`) or raises. The TPU tiling argument (``block_rows``) has no
-counterpart.
+multiple of 8. It calls the op ``rtda_torch::conv3x3``: on a CPU tensor
+that runs :func:`conv3x3_plain`; on a CUDA tensor it launches the kernel in
+``csrc/conv3x3.cu`` (built on first use, see :mod:`.build`) or raises. The
+TPU tiling argument (``block_rows``) has no counterpart.
 
 The kernel reads its operands with TMA, which needs bf16 operands with
 16-byte aligned bases and row strides. :func:`launch_plan` decides, from the
@@ -137,11 +137,40 @@ def conv3x3(
 ) -> torch.Tensor:
     """(B, H, W, C) x, (3, 3, C, CO) w -> (B, H, W, CO) ``out_dtype``, with
     the optional per-channel f32 ``scale`` / ``shift`` (a folded BatchNorm;
-    ``shift`` defaults to zero) and ReLU fused."""
-    if x.device.type == "cpu":
-        return conv3x3_plain(x, w, scale, shift, relu=relu, dilation=dilation, out_dtype=out_dtype)
-    if x.device.type != "cuda":
+    ``shift`` defaults to zero) and ReLU fused.
+
+    Calls the op ``rtda_torch::conv3x3``, so a traced graph
+    (``torch.export``) holds one opaque node per call whatever device traced
+    it. The model reaches this function through its module, so a test can
+    swap it for the plain version in eager calls."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv3x3 runs on CPU or CUDA tensors, got {x.device}")
+    return conv3x3_op(x, w, scale, shift, relu, dilation, out_dtype)
+
+
+@torch.library.custom_op("rtda_torch::conv3x3", mutates_args=())
+def conv3x3_op(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor], shift: Optional[torch.Tensor],
+               relu: bool, dilation: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """K4 as an op: the CPU implementation is :func:`conv3x3_plain` (its
+    output made contiguous, as the kernel's is), the CUDA one launches the
+    kernel; neither falls back to the other."""
+    raise ValueError(f"conv3x3 runs on CPU or CUDA tensors, got {x.device}")
+
+
+@conv3x3_op.register_fake
+def _(x, w, scale, shift, relu, dilation, out_dtype):
+    _check(x, w, scale, shift, dilation, out_dtype)
+    return x.new_empty((*x.shape[:3], w.shape[3]), dtype=out_dtype)
+
+
+@conv3x3_op.register_kernel("cpu")
+def _(x, w, scale, shift, relu, dilation, out_dtype):
+    return conv3x3_plain(x, w, scale, shift, relu=relu, dilation=dilation, out_dtype=out_dtype).contiguous()
+
+
+@conv3x3_op.register_kernel("cuda")
+def _(x, w, scale, shift, relu, dilation, out_dtype):
+    """Launch the CUDA kernel on CUDA operands, or raise."""
     _check(x, w, scale, shift, dilation, out_dtype)
     if scale is not None and shift is None:
         shift = torch.zeros_like(scale)

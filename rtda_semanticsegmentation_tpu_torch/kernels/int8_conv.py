@@ -13,9 +13,10 @@ dilation 2 and 4 with padding = dilation):
 
 :func:`int8_conv` takes the JAX package's layouts: NHWC s8 codes and HWIO s8
 weights. A ``channels_last`` NCHW tensor permuted to NHWC is already
-contiguous, so the model's permute costs nothing. On a CPU tensor it runs
-:func:`int8_conv_plain`; on a CUDA tensor it launches the kernel in
-``csrc/int8_conv.cu`` (built on first use, see :mod:`.build`) or raises.
+contiguous, so the model's permute costs nothing. It calls the op
+``rtda_torch::int8_conv``: on a CPU tensor that runs :func:`int8_conv_plain`;
+on a CUDA tensor it launches the kernel in ``csrc/int8_conv.cu`` (built on
+first use, see :mod:`.build`) or raises.
 
 The kernel's s8 tensor cores read the weights K-major only: it takes the
 (CO, KH*KW, C) copy and the column sums that :func:`kmajor_weights` makes,
@@ -178,14 +179,50 @@ def int8_conv(
     """(B,H,W,C) s8 codes * (KH,KW,C,CO) s8 -> (B,HO,WO,CO) ``out_dtype``,
     or s8 codes on the next conv's unsigned grid when ``inv_out`` is given
     (which requires ``relu``). ``kmajor`` is :func:`kmajor_weights` of
-    ``wq``, made once by the caller; without it each call makes its own."""
-    if xq.device.type == "cpu":
-        return int8_conv_plain(
-            xq, wq, a, b, inv_out,
-            stride=stride, padding=padding, dilation=dilation, relu=relu, out_dtype=out_dtype,
-        )
-    if xq.device.type != "cuda":
+    ``wq``, made once by the caller; without it each launch makes its own.
+
+    Calls the op ``rtda_torch::int8_conv``, so a traced graph
+    (``torch.export``) holds one opaque node per call whatever device traced
+    it. The callers reach this function through its module, so a test can
+    swap it for the plain version in eager calls."""
+    if xq.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8_conv runs on CPU or CUDA tensors, got {xq.device}")
+    wk, colsum = kmajor if kmajor is not None else (None, None)
+    return int8_conv_op(xq, wq, a, b, inv_out, wk, colsum, stride, padding, dilation, relu, out_dtype)
+
+
+@torch.library.custom_op("rtda_torch::int8_conv", mutates_args=())
+def int8_conv_op(
+    xq: torch.Tensor, wq: torch.Tensor, a: torch.Tensor, b: torch.Tensor, inv_out: Optional[torch.Tensor],
+    wk: Optional[torch.Tensor], colsum: Optional[torch.Tensor], stride: int, padding: int, dilation: int,
+    relu: bool, out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """K3 as an op: the CPU implementation is :func:`int8_conv_plain`, the
+    CUDA one launches the kernel; neither falls back to the other."""
+    raise ValueError(f"int8_conv runs on CPU or CUDA tensors, got {xq.device}")
+
+
+@int8_conv_op.register_fake
+def _(xq, wq, a, b, inv_out, wk, colsum, stride, padding, dilation, relu, out_dtype):
+    ho, wo = _check(xq, wq, a, b, inv_out, stride, padding, dilation, relu, out_dtype)
+    return xq.new_empty((xq.shape[0], ho, wo, wq.shape[3]),
+                        dtype=torch.int8 if inv_out is not None else out_dtype)
+
+
+@int8_conv_op.register_kernel("cpu")
+def _(xq, wq, a, b, inv_out, wk, colsum, stride, padding, dilation, relu, out_dtype):
+    return int8_conv_plain(xq, wq, a, b, inv_out, stride=stride, padding=padding, dilation=dilation, relu=relu,
+                           out_dtype=out_dtype)
+
+
+@int8_conv_op.register_kernel("cuda")
+def _(xq, wq, a, b, inv_out, wk, colsum, stride, padding, dilation, relu, out_dtype):
+    return _launch(xq, wq, a, b, inv_out, None if wk is None else (wk, colsum), stride, padding, dilation, relu,
+                   out_dtype)
+
+
+def _launch(xq, wq, a, b, inv_out, kmajor, stride, padding, dilation, relu, out_dtype) -> torch.Tensor:
+    """Launch the CUDA kernel on CUDA operands, or raise."""
     ho, wo = _check(xq, wq, a, b, inv_out, stride, padding, dilation, relu, out_dtype)
     tensors = [xq, wq, a, b] + ([inv_out] if inv_out is not None else [])
     for t in tensors:

@@ -95,7 +95,8 @@ class QuantConv(Conv):
       ``k3_weight`` / ``k3_colsum`` (non-persistent, :meth:`fold`) are
       ``wq`` in the layout K3 reads; without them each call makes its own.
       A forward after ``wq`` was written or replaced since the fold raises
-      instead of serving the old weights.
+      instead of serving the old weights (eagerly; a trace cannot read the
+      storage, so ``serving.export_serving`` runs :meth:`check_fold` first).
 
     Every mode runs the conv at its ``dilation``.
     """
@@ -130,6 +131,11 @@ class QuantConv(Conv):
         self.k3_weight, self.k3_colsum = kmajor_weights(self.wq)
         self._k3_source = self._wq_state()
 
+    def check_fold(self) -> None:
+        """Raise if ``wq`` was written or replaced since :meth:`fold`."""
+        if self.k3_weight is not None and self._wq_state() != self._k3_source:
+            raise RuntimeError("wq changed after layers.fold_kernel_operands(model); call it again")
+
     @torch.no_grad()
     def _record(self, x_nhwc):
         self.in_absmax.copy_(
@@ -154,8 +160,10 @@ class QuantConv(Conv):
             scale, shift = fold_batch_norm(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
             a, b = fold_bn_epilogue(sw, c, scale, shift)
         else:
-            if self.k3_weight is not None and self._wq_state() != self._k3_source:
-                raise RuntimeError("wq changed after layers.fold_kernel_operands(model); call it again")
+            # a trace (torch.export) has no storage to read: export_serving
+            # checks the fold eagerly before it traces
+            if not torch.compiler.is_compiling():
+                self.check_fold()
             wq, a, b = self.wq, self.a, self.b
             if self.k3_weight is not None:
                 kmajor = (self.k3_weight, self.k3_colsum)
@@ -311,6 +319,15 @@ def fold_kernel_operands(model: nn.Module) -> None:
     for m in model.modules():
         if (isinstance(m, ConvBN) and m.fused) or (isinstance(m, QuantConv) and m.mode == "int8_frozen"):
             m.fold()
+
+
+def check_kernel_operands(model: nn.Module) -> None:
+    """Raise if a frozen QuantConv's ``wq`` changed since
+    :func:`fold_kernel_operands`; the check a forward makes, run eagerly
+    before a trace."""
+    for m in model.modules():
+        if isinstance(m, QuantConv) and m.mode == "int8_frozen":
+            m.check_fold()
 
 
 def max_pool_torch(x, window: int, strides: int, padding: int, ceil_mode: bool = False):

@@ -390,3 +390,41 @@ def test_conv3x3_kernel_refuses_a_non_contiguous_input():
     w = torch.zeros((3, 3, 8, 8), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         k4.conv3x3(x.permute(0, 2, 3, 1), w)
+
+
+@pytest.mark.cuda
+def test_artifact_exported_on_the_cpu_runs_k3_on_the_card(tmp_path):
+    """An int8 R18 artifact traced on the CPU, loaded onto the card: one K3
+    launch per QuantConv (15) with no operand copy, and masks equal to the
+    eager int8 path's on the card. The graph holds the op, not the CPU's
+    plain conv."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtda_semanticsegmentation_tpu_torch.config import AugmentConfig, ModelConfig
+    from rtda_semanticsegmentation_tpu_torch.models.factory import build_model, init_model
+    from rtda_semanticsegmentation_tpu_torch.models.quantize import calibrate, freeze
+    from rtda_semanticsegmentation_tpu_torch.ops.augment import normalize_u8
+    from rtda_semanticsegmentation_tpu_torch.serving import (
+        export_serving,
+        load_artifact,
+        make_serving_fn,
+        save_artifact,
+    )
+
+    cfg, aug = ModelConfig(compute_dtype="bfloat16"), AugmentConfig()
+    variables = init_model(build_model(cfg, device="cpu"), torch.Generator().manual_seed(0))
+    frames = torch.from_numpy(np.random.RandomState(3).randint(0, 256, (2, 64, 128, 3), np.uint8))
+    # frozen once, on the CPU: the card's f32 sums would round the constants
+    # in another order
+    frozen = freeze(cfg, calibrate(cfg, variables, [normalize_u8(frames, aug)], device="cpu"))
+    exported, meta = export_serving(cfg, aug, frozen, 64, 128, precision="int8", device="cpu")
+    save_artifact(str(tmp_path), exported, meta)
+    fn, meta = load_artifact(str(tmp_path), device="cuda")
+    assert meta["platforms"] == ["cpu"]
+    eager = make_serving_fn(cfg, aug, {k: v.cuda() for k, v in frozen.items()}, "int8", device="cuda")
+    want = eager(frames.cuda())
+    before = (k3.launches, k3.copies)
+    got = fn(frames.numpy())
+    torch.cuda.synchronize()
+    assert (k3.launches - before[0], k3.copies - before[1]) == (15, 0)
+    assert got.device.type == "cuda" and torch.equal(got, want)

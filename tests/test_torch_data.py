@@ -82,10 +82,32 @@ def test_build_dataset_and_unported_decoders(roots):
     assert len(tdatasets.build_dataset("synthetic", "val", (16, 16), cfg)) == 7
     with pytest.raises(ValueError, match="unknown dataset"):
         tdatasets.build_dataset("kitti", "val", (16, 16), cfg)
-    with pytest.raises(NotImplementedError, match="native"):
-        tdatasets.build_dataset("cityscapes", "val", (16, 16), tconfig.DataConfig(native_decode="on"))
-    with pytest.raises(NotImplementedError, match="decoded"):
-        tdatasets.build_dataset("synthetic", "val", (16, 16), tconfig.DataConfig(decoded_cache_dir="/tmp/x"))
+    # native_decode='on' decodes (the same bits as PIL), or raises only with
+    # the library build's reason
+    from rtda_semanticsegmentation_tpu_torch.data import native
+
+    on = tdatasets.build_dataset("cityscapes", "val", (16, 16), tconfig.DataConfig(cityscapes_path=cs,
+                                                                                    native_decode="on"))
+    off = tdatasets.build_dataset("cityscapes", "val", (16, 16), tconfig.DataConfig(cityscapes_path=cs,
+                                                                                     native_decode="off"))
+    if native.available():
+        for a, b in zip(on.load(0), off.load(0)):
+            np.testing.assert_array_equal(a, b)
+    else:
+        with pytest.raises(RuntimeError, match="native_decode='on' but the fast path is unavailable"):
+            on.load(0)
+    # decoded_cache_dir builds the cache around a file dataset, not around
+    # generated frames
+    from rtda_semanticsegmentation_tpu_torch.data.cache import DecodedCacheDataset
+
+    cached = tdatasets.build_dataset("cityscapes", "val", (16, 16), tconfig.DataConfig(
+        cityscapes_path=cs, decoded_cache_dir=os.path.join(os.path.dirname(cs), "cache")))
+    assert isinstance(cached, DecodedCacheDataset)
+    for a, b in zip(cached.load(1), off.load(1)):
+        np.testing.assert_array_equal(a, b)
+    assert os.path.exists(cached._entry_path(1))
+    assert isinstance(tdatasets.build_dataset("synthetic", "val", (16, 16), tconfig.DataConfig(
+        decoded_cache_dir=os.path.join(os.path.dirname(cs), "cache"))), tdatasets.SyntheticDataset)
     assert tconfig.DataConfig(num_workers=0).resolved_num_workers() == 1
     assert (tconfig.DataConfig().resolved_num_workers() == jconfig.DataConfig().resolved_num_workers())
 

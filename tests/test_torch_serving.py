@@ -28,6 +28,7 @@ from rtda_semanticsegmentation_tpu.ops.augment import normalize_u8 as jnormalize
 from rtda_semanticsegmentation_tpu.serving import make_serving_fn as jmake_serving_fn
 from rtda_semanticsegmentation_tpu_torch import config as tconfig
 from rtda_semanticsegmentation_tpu_torch.cli import predict as tpredict
+from rtda_semanticsegmentation_tpu_torch.cli.export import main as export_main
 from rtda_semanticsegmentation_tpu_torch.cli.predict import main as predict_main
 from rtda_semanticsegmentation_tpu_torch.data.labels import train_ids_to_rgb
 from rtda_semanticsegmentation_tpu_torch.models.convert import from_jax_variables
@@ -120,14 +121,29 @@ def test_predict_int8_overlay_model_size(image_dir, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--checkpoint_dir", "ckpt"], ["--artifact", "art"]])
 def test_predict_unported_sources_raise(image_dir, tmp_path, flag):
-    """``--artifact`` is not ported and raises so; ``--checkpoint_dir`` is
-    ported (``tests/test_torch_cli.py`` predicts from a trained checkpoint)
-    and raises only when the directory holds no checkpoint."""
-    error, match = ((FileNotFoundError, "no 'best' checkpoint") if flag[0] == "--checkpoint_dir"
-                    else (NotImplementedError, "not ported"))
-    with pytest.raises(error, match=match):
-        predict_main(["--images", str(image_dir), "--output", str(tmp_path / "o"), "--device", "cpu",
-                      *[str(tmp_path / v) if v == "ckpt" else v for v in flag]])
+    """``--checkpoint_dir`` raises only when the directory holds no
+    checkpoint (``tests/test_torch_cli.py`` predicts from a trained one).
+    ``--artifact`` is ported: an artifact that ``cli/export.main`` wrote
+    (f32, batch pinned at 2, so the tail batch is padded) serves PNGs equal
+    to those of predict without it on the same seeded weights."""
+    if flag[0] == "--checkpoint_dir":
+        with pytest.raises(FileNotFoundError, match="no 'best' checkpoint"):
+            predict_main(["--images", str(image_dir), "--output", str(tmp_path / "o"), "--device", "cpu",
+                          "--checkpoint_dir", str(tmp_path / "ckpt")])
+        return
+    art = tmp_path / "art"
+    common = ["--size", "32", "64", "--precision", "f32", "--device", "cpu"]
+    assert export_main(["--output", str(art), "--batch", "2", *common]) == 0
+    assert predict_main(["--images", str(image_dir), "--output", str(tmp_path / "a"), "--artifact", str(art),
+                         "--device", "cpu"]) == 0
+    assert predict_main(["--images", str(image_dir), "--output", str(tmp_path / "e"), "--batch_size", "2",
+                         *common]) == 0
+    names = sorted(os.listdir(tmp_path / "e"))
+    assert names == sorted(os.listdir(tmp_path / "a")) and len(names) == 6
+    for name in names:
+        got, want = Image.open(tmp_path / "a" / name), Image.open(tmp_path / "e" / name)
+        assert got.size == want.size and got.mode == want.mode
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 def _flags(parser):
@@ -182,6 +198,12 @@ PORT_ENTRY_MODULES = (
     "rtda_semanticsegmentation_tpu_torch.cli.common",
     "rtda_semanticsegmentation_tpu_torch.cli.train",
     "rtda_semanticsegmentation_tpu_torch.cli.train_adversarial",
+    "rtda_semanticsegmentation_tpu_torch.cli.export",
+    "rtda_semanticsegmentation_tpu_torch.cli.convert_torch_weights",
+    "rtda_semanticsegmentation_tpu_torch.cli.debug_dataset",
+    "rtda_semanticsegmentation_tpu_torch.data.native",
+    "rtda_semanticsegmentation_tpu_torch.data.cache",
+    "rtda_semanticsegmentation_tpu_torch.data.preprocess",
     "chip_smoke",
     "profile_serve",
     "profile_train",
@@ -194,9 +216,11 @@ def test_port_imports_no_jax(tmp_path):
     adversarial train step and its fused discriminator are built, after
     DeepLabV2 is built with its 3x3 convs on K4, after the DeepLabV2 train
     step with remat and its frozen-BatchNorm optimizer and the R101 int8
-    models (frozen and not) are built, and after a 1-epoch, 2-step
+    models (frozen and not) are built, after a 1-epoch, 2-step
     ``run_experiment`` on the CPU (synthetic data, validation, checkpoints,
-    the report), no jax, jaxlib, flax or optax module and nothing of the JAX
+    the report), after an export through ``cli/export`` and its load, a
+    run of the converter CLI, and a native decode through the decoded-sample
+    cache, no jax, jaxlib, flax or optax module and nothing of the JAX
     package is loaded."""
     code = (
         "import importlib, sys\n"
@@ -247,6 +271,31 @@ def test_port_imports_no_jax(tmp_path):
         "check('run_experiment')\n"
         "import shutil\n"
         "shutil.rmtree(root + '/ckpt')\n"
+        "import numpy as np\n"
+        "from PIL import Image\n"
+        "from rtda_semanticsegmentation_tpu_torch.cli import export, convert_torch_weights\n"
+        "from rtda_semanticsegmentation_tpu_torch.serving import load_artifact\n"
+        "assert export.main(['--output', root + '/art', '--size', '32', '64', '--device', 'cpu']) == 0\n"
+        "fn, _ = load_artifact(root + '/art', device='cpu')\n"
+        "assert tuple(fn(np.zeros((1, 32, 64, 3), np.uint8)).shape) == (1, 32, 64)\n"
+        "check('an export and a load')\n"
+        "import torch\n"
+        "torch.save({'conv1.weight': torch.ones(64, 3, 7, 7)}, root + '/r.pth')\n"
+        "convert_torch_weights.main(['--torch_checkpoint', root + '/r.pth', '--model', 'bisenet',\n"
+        "                            '--output', root + '/r.npz'])\n"
+        "check('the converter CLI')\n"
+        "from rtda_semanticsegmentation_tpu_torch.data import native\n"
+        "from rtda_semanticsegmentation_tpu_torch.data.cache import DecodedCacheDataset\n"
+        "from rtda_semanticsegmentation_tpu_torch.data.datasets import GTA5Dataset\n"
+        "import os\n"
+        "for sub in ('images', 'labels_trainids'):\n"
+        "    os.makedirs(f'{root}/gta/{sub}')\n"
+        "Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(root + '/gta/images/a.png')\n"
+        "Image.fromarray(np.zeros((8, 8), np.uint8)).save(root + '/gta/labels_trainids/a.png')\n"
+        "ds = GTA5Dataset(root + '/gta', size=(4, 4), native_decode='on')\n"
+        "DecodedCacheDataset(ds, root + '/cache').load(0)\n"
+        "assert native.available()\n"
+        "check('the native decode and the cache')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
