@@ -153,8 +153,34 @@ failure:
    artifact, artifact, eager), with the card's name and power limit. Phase
    4 also shows that K3 launches nothing while ``k3_plain`` swaps it.
    K3's and K4's counts in the kernels line add these launches.
+13. distributed (run after phase 8): data parallelism on
+   ``torch.distributed``. (a) The flagship's training job (as phase 8,
+   1 epoch of 3 steps, ``--no_perf``) launched by ``python -m
+   torch.distributed.run --nproc_per_node 1`` through this script's
+   ``--worker cli``, which calls ``cli/train_adversarial.main``: its start
+   line must name NCCL and world 1, K1 and K2 must launch once per step,
+   and its logged losses must equal the same run's without the launcher:
+   step 1 bit for bit; later steps within 1e-2 relative, as two runs
+   without the launcher differ too (printed): the bf16 bilinear
+   upsample's backward adds in bf16 (an ulp is 3.9e-3) with atomics, in no
+   fixed order.
+   K1's and K2's counts in the kernels line add these launches.
+   (b) Two ranks on the one card over gloo (``--worker dp``, each on cuda:0
+   through ``parallel.ensure_distributed(backend="gloo")`` and
+   ``create_mesh(device="cuda:0")``): one flagship step at full shapes,
+   global batch 8, 4 rows a rank, against the same step in this process
+   (losses within 1e-4, grad norms within 1e-2 relative, as phase 6's card
+   against CPU). (c) K1 on the flagship's (8, 19, 720*1280) probabilities:
+   split over the 2 ranks and summed as integer histograms, cut into 3
+   launches (``MAX_PIXELS`` patched), and in one launch: the same bits,
+   and the same bits as its plain version. (d) A source-only binned-Lovász
+   step at b32 512x1024 (2**24 pixels): 2 K1 launches and 1 K2 per step,
+   finite loss; prints its ms/step and peak memory.
 
 The last two lines are a JSON summary of the kernels and the result line.
+``python3 chip_smoke.py --only distributed`` runs phases 1, 2 and 13 alone
+(a quicker check of the distributed path); ``--worker`` is the form phase
+13 starts its ranks with.
 """
 
 from __future__ import annotations
@@ -167,7 +193,9 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
+import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -1729,6 +1757,195 @@ def phase_deeplab_loop() -> int:
     return counts["int8_conv"]
 
 
+DIST_DIR = os.path.join("build", "chip_smoke_dist")
+DIST_STEPS = 3
+
+
+def _dist_argv(name: str) -> list:
+    """The flagship's job for the distributed phase: 1 epoch of 3 steps,
+    every step's losses logged."""
+    return ["--preset", "bisenet_adversarial_lovasz", "--train_dataset", "synthetic", "--val_dataset", "synthetic",
+            "--target_dataset", "synthetic", "--batch_size", "8", "--eval_batch_size", "8", "--epochs", "1",
+            "--steps_per_epoch", str(DIST_STEPS), "--no_perf", "--print_freq_batch", "1", "--log_backend", "jsonl",
+            "--log_dir", os.path.join(DIST_DIR, "logs"), "--checkpoint_dir", os.path.join(DIST_DIR, "ckpt"),
+            "--run_name", name]
+
+
+def _torchrun(nproc: int, *args, timeout: int = 600) -> str:
+    """``python -m torch.distributed.run`` of this script with ``args`` on
+    ``nproc`` ranks; returns the output, raises on failure."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node", str(nproc),
+           "--master_addr", "127.0.0.1", "--master_port", str(port), os.path.abspath(__file__), *args]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode}):\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def worker_cli(out: str, argv: list) -> None:
+    """A rank of phase 13a: ``cli/train_adversarial.main`` with the kernels'
+    counts from 0; rank 0 writes them and the step times to ``out``."""
+    from rtda_semanticsegmentation_tpu_torch.cli import train_adversarial
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    klov.hist_launches = klov.bwd_launches = 0
+    report = train_adversarial.main(argv)
+    torch.cuda.synchronize()
+    trainer = report["trainer"]
+    if trainer.mesh.is_main:
+        with open(out, "w") as f:
+            json.dump({"lovasz_hist": klov.hist_launches, "lovasz_bwd": klov.bwd_launches,
+                       "world": trainer.mesh.world, "steps": report["global_step"],
+                       "step_ms": trainer.timings["step_ms"]}, f)
+
+
+def _dist_flagship(mesh=None):
+    """The flagship step of phase 13b from its seeded init, on the global
+    batch's rows of ``mesh``'s rank (all of them without a mesh); its
+    metrics."""
+    # imported here: profile_conv.py --root loads this module over older checkouts
+    from rtda_semanticsegmentation_tpu_torch.models.layers import sync_batch_norm
+
+    cfg = get_preset("bisenet_adversarial_lovasz")
+    state, _ = _train_setup(cfg, DEV)
+    step = make_train_step(cfg, state.schedule, state.d_schedule, mesh=mesh)
+    batch = _adversarial_batch(cfg.train.batch_size, SOURCE_HW, TARGET_HW, 31, DEV)
+    if mesh is not None:
+        sync_batch_norm(state.model, mesh)
+        local = mesh.check_batch(cfg.train.batch_size)
+        batch = {k: v[mesh.rank * local:(mesh.rank + 1) * local].contiguous() for k, v in batch.items()}
+    _, m = step(state, batch, torch.Generator(device=DEV).manual_seed(5))
+    return {k: float(v) for k, v in m.items()}
+
+
+def worker_dp(out: str) -> None:
+    """A rank of phases 13b and 13c: gloo on cuda:0, the flagship step on
+    its rows, then K1's integer histogram of its rows of the flagship's
+    source map summed over the ranks; rank 0 writes both to ``out``."""
+    from rtda_semanticsegmentation_tpu_torch.parallel import create_mesh, ensure_distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ensure_distributed(device=DEV, backend="gloo")
+    mesh = create_mesh(device=DEV)
+    metrics = _dist_flagship(mesh)
+    probas, labels = _lovasz_case("spread", SOURCE_HW[0] * SOURCE_HW[1])
+    local = mesh.check_batch(BATCH)
+    rows = slice(mesh.rank * local, (mesh.rank + 1) * local)
+    raw = klov.lovasz_hist_raw(probas[rows].contiguous(), labels[rows].contiguous(), BINS, 255)
+    hist = klov.finalize_hist(mesh.sum_(raw))
+    torch.cuda.synchronize()
+    if mesh.is_main:
+        torch.save({"metrics": metrics, "world": mesh.world, "backend": torch.distributed.get_backend(),
+                    "hist": hist.cpu()}, out)
+    torch.distributed.destroy_process_group()
+
+
+def phase_distributed(card: str) -> dict:
+    """Phase 13; returns K1's and K2's launches on its main path (13a)."""
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    torch.cuda.empty_cache()
+    # (a) the job under the launcher at world 1, on NCCL, and without it
+    out = os.path.join(DIST_DIR, "cli.json")
+    t0 = time.perf_counter()
+    log = _torchrun(1, "--worker", "cli", out, *_dist_argv("nccl"))
+    launched_s = time.perf_counter() - t0
+    got = json.load(open(out))
+    start = [line for line in log.splitlines() if line.startswith("mode=")]
+    print(f"distributed (a): torch.distributed.run --nproc_per_node 1, {launched_s:.1f} s; start line {start}; "
+          f"launches K1 {got['lovasz_hist']} K2 {got['lovasz_bwd']} over {got['steps']} steps")
+    if len(start) != 1 or "backend=nccl world=1" not in start[0]:
+        raise AssertionError(f"the launched run's start line does not name NCCL at world 1: {start}")
+    if got["steps"] != DIST_STEPS or (got["lovasz_hist"], got["lovasz_bwd"]) != (DIST_STEPS, DIST_STEPS):
+        raise AssertionError(f"expected one K1 and one K2 launch per step over {DIST_STEPS} steps, got {got}")
+    report, counts, seconds = _loop_run(_dist_argv("alone"))
+    alone_ms = report["timings"]["step_ms"]
+    del report
+    _loop_run(_dist_argv("again"))
+    nccl = _loop_losses(os.path.join(DIST_DIR, "logs", "nccl.jsonl"))
+    alone = _loop_losses(os.path.join(DIST_DIR, "logs", "alone.jsonl"))
+    again = _loop_losses(os.path.join(DIST_DIR, "logs", "again.jsonl"))
+    spread = max((_rel(a[2], b[2]) for a, b in zip(again, alone) if a[0] > 1), default=0.0)
+    print(f"distributed (a): ms/step on the device timeline, launched (NCCL, world 1) "
+          + " ".join(f"{x:.1f}" for x in got["step_ms"]) + f" (median {np.median(got['step_ms']):.3f}); "
+          "without the launcher " + " ".join(f"{x:.1f}" for x in alone_ms)
+          + f" (median {np.median(alone_ms):.3f}); {card}")
+    worst = max((_rel(a[2], b[2]) for a, b in zip(nccl, alone) if a[0] > 1), default=0.0)
+    first = [(a, b) for a, b in zip(nccl, alone) if a[0] == 1]
+    print(f"distributed (a): {len(nccl)} logged losses; step 1 "
+          + ", ".join(f"{a[1]} {a[2]!r} vs {b[2]!r}" for a, b in first)
+          + f"; steps 2-{DIST_STEPS}: largest relative difference {worst:.3e} (two runs without the launcher: "
+          f"{spread:.3e})")
+    if [(s, k) for s, k, _ in nccl] != [(s, k) for s, k, _ in alone] or len(nccl) == 0:
+        raise AssertionError("the launched run and the run without the launcher logged different losses")
+    if any(a[2] != b[2] for a, b in first) or worst > 1e-2:
+        raise AssertionError("the launched run's losses differ from those without the launcher")
+    if (counts["lovasz_hist"], counts["lovasz_bwd"]) != (DIST_STEPS, DIST_STEPS):
+        raise AssertionError(f"the run without the launcher: launches {counts}")
+
+    # (b) and (c): two gloo ranks on cuda:0
+    out = os.path.join(DIST_DIR, "dp.pt")
+    t0 = time.perf_counter()
+    _torchrun(2, "--worker", "dp", out)
+    ranks = torch.load(out, weights_only=False)
+    one = _dist_flagship()
+    tols = {"loss": 1e-4, "loss_ce": 1e-4, "loss_lovasz": 1e-4, "loss_d": 1e-4, "loss_adv_g": 1e-4,
+            "grad_norm": 1e-2, "grad_norm_d": 1e-2}
+    errs = {k: _rel(ranks["metrics"][k], one[k]) for k in tols}
+    print(f"distributed (b): 2 ranks ({ranks['backend']}, world {ranks['world']}) on one card, "
+          f"{time.perf_counter() - t0:.1f} s with the single-process step: "
+          + ", ".join(f"{k} {ranks['metrics'][k]:.6f} vs {one[k]:.6f} (rel {errs[k]:.1e})" for k in tols))
+    if (ranks["backend"], ranks["world"]) != ("gloo", 2) or any(errs[k] > tol for k, tol in tols.items()):
+        raise AssertionError("the 2-rank flagship step disagrees with the single-process step")
+    probas, labels = _lovasz_case("spread", SOURCE_HW[0] * SOURCE_HW[1])
+    whole = klov.lovasz_hist(probas, labels, BINS, 255)
+    saved = klov.MAX_PIXELS
+    klov.MAX_PIXELS = 3 * SOURCE_HW[0] * SOURCE_HW[1]
+    try:
+        before = klov.hist_launches
+        cut = klov.lovasz_hist(probas, labels, BINS, 255)
+        cut_launches = klov.hist_launches - before
+    finally:
+        klov.MAX_PIXELS = saved
+    plain = klov.lovasz_hist_plain(probas, labels, BINS, 255)
+    same = (torch.equal(whole, cut), torch.equal(whole.cpu(), ranks["hist"]), torch.equal(whole, plain))
+    print(f"distributed (c): K1 on (8, 19, {SOURCE_HW[0] * SOURCE_HW[1]}): one launch against {cut_launches} "
+          f"launches, 2 ranks' sum and the plain version: the same bits {same}")
+    if cut_launches != 3 or not all(same):
+        raise AssertionError("K1 cut into launches or summed over ranks is not the same bits as one launch")
+    del probas, labels, plain
+
+    # (d) b32 at 512x1024: 2**24 pixels, two K1 launches a step
+    cfg = get_preset("bisenet_source_aug")
+    cfg = cfg.replace(loss=dataclasses.replace(cfg.loss, use_lovasz=True),
+                      train=dataclasses.replace(cfg.train, batch_size=32))
+    h, w = H, W
+    torch.cuda.empty_cache()
+    state, step = _train_setup(cfg, DEV)
+    batch = _train_batch(32, h, w, 41, DEV)
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    klov.hist_launches = klov.bwd_launches = 0
+    metrics, ms = _timed_steps(state, step, batch, gen, WARMUP_STEPS + 1)
+    launches = (klov.hist_launches, klov.bwd_launches)
+    losses = [float(m["loss"]) for m in metrics]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"distributed (d): bisenet_source_aug + binned Lovász at b32 {h}x{w} ({32 * h * w} pixels): losses "
+          + " ".join(f"{x:.4f}" for x in losses) + f"; launches (K1, K2) {launches} over {len(losses)} steps; "
+          f"{ms:.3f} ms/step, peak device memory {peak:.2f} GiB; {card}")
+    if launches != (2 * len(losses), len(losses)) or not all(np.isfinite(losses)):
+        raise AssertionError(f"the b32 Lovász step: launches {launches}, losses {losses}")
+    del state, step, batch
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return {"lovasz_hist": got["lovasz_hist"], "lovasz_bwd": got["lovasz_bwd"]}
+
+
 def _k3_entry(times: list) -> dict:
     """K3's kernels-line numbers: the sums of the per-forward times of the
     three int8 models."""
@@ -1739,9 +1956,18 @@ def _k3_entry(times: list) -> dict:
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--worker"]:
+        kind, out = sys.argv[2], sys.argv[3]
+        return worker_cli(out, sys.argv[4:]) if kind == "cli" else worker_dp(out)
     t0 = time.perf_counter()
     card = phase_device()
     phase_build()
+    if sys.argv[1:] == ["--only", "distributed"]:
+        phase_distributed(card)
+        print(f"chip_smoke.py: the distributed phase passed in {time.perf_counter() - t0:.1f} s")
+        return
+    if sys.argv[1:]:
+        raise SystemExit(f"unknown arguments {sys.argv[1:]}: none, or --only distributed")
     k3_times = phase_kernels()
     lovasz_times = phase_lovasz_kernels()
     conv4_times = phase_conv4_kernels()
@@ -1758,6 +1984,8 @@ def main() -> None:
     phase_deeplab_train()
     k3_launches += phase_loop(isolated_ms)
     k3_launches += phase_deeplab_loop()
+    dist_launches = phase_distributed(card)
+    train_launches = {k: v + dist_launches[k] for k, v in train_launches.items()}
     k3_entry = _k3_entry([k3_times, r101_k3_times["r101"], r101_k3_times["deeplabv2"]])
     pkg = "rtda_semanticsegmentation_tpu_torch/csrc"
     ref = "rtda_semanticsegmentation_tpu/ops"

@@ -3,17 +3,36 @@ ExperimentConfig (the JAX package's ``cli/common.py`` flag surface, plus
 ``--device``).
 
 Every override produces a new frozen config via ``dataclasses.replace``.
-The port runs on one device: ``--mesh_data`` and ``--mesh_model`` accept a
-one-device mesh only (1, or -1 for "all devices" = the one), and anything
-larger raises (multi-GPU is ROADMAP queue 1 item 8).
+Data parallelism: launch one process per card with ``python -m
+torch.distributed.run --nproc_per_node N -m <this CLI> ...``;
+:func:`process_group` joins the launcher's group (NCCL on cards, gloo with
+``--device cpu``) and ``--mesh_data`` (-1, the default, or N) must match
+its size. ``--mesh_model`` above 1 raises: tensor parallelism is not
+ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 
+import torch.distributed as dist
+
 from ..config import PRESETS, ExperimentConfig, OptimizerConfig, get_preset
+from ..parallel import check_mesh, ensure_distributed, world_size
+
+
+@contextlib.contextmanager
+def process_group(device: str):
+    """Join the launcher's process group for the run (nothing without a
+    launcher), and leave it at the end if this call joined it."""
+    joined = ensure_distributed(device=device)
+    try:
+        yield
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 def add_common_flags(p: argparse.ArgumentParser, adversarial: bool) -> None:
@@ -78,11 +97,11 @@ def add_common_flags(p: argparse.ArgumentParser, adversarial: bool) -> None:
                    help="Mirror saved checkpoints to the W&B run "
                         "(reference wandb.save policy='live').")
     p.add_argument("--mesh_data", type=int,
-                   help="Data-parallel axis size: 1 or -1 (the port runs on "
-                        "one device).")
+                   help="Data-parallel ranks, one device each: -1 (all the "
+                        "launcher's processes) or their number.")
     p.add_argument("--mesh_model", type=int,
-                   help="Model-parallel axis size: 1 (the port runs on one "
-                        "device).")
+                   help="Model-parallel axis size: 1 (tensor parallelism is "
+                        "not ported).")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="Where to run: cuda needs a CUDA device and raises "
                         "without one.")
@@ -205,12 +224,8 @@ def args_to_config(args: argparse.Namespace, adversarial: bool) -> ExperimentCon
     rep("obs", backend=args.log_backend, run_name=args.run_name,
         log_dir=args.log_dir, watch_freq_steps=args.watch_freq_steps,
         upload_checkpoints=args.upload_checkpoints)
-    for flag, value, ok in (("--mesh_data", args.mesh_data, (1, -1)), ("--mesh_model", args.mesh_model, (1,))):
-        if value is not None and value not in ok:
-            raise ValueError(
-                f"{flag} {value}: the PyTorch port runs on one device; a mesh of more than one device "
-                "is not ported yet (ROADMAP queue 1 item 8, multi-GPU)"
-            )
+    rep("mesh", data=args.mesh_data, model=args.mesh_model)
+    check_mesh(cfg.mesh, world_size())
     if adversarial:
         rep("adversarial",
             disc_downsample=getattr(args, "disc_downsample", None),

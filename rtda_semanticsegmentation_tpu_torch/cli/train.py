@@ -21,15 +21,16 @@ from __future__ import annotations
 import argparse
 
 from ..train.loop import run_experiment
-from .common import add_common_flags, args_to_config
+from .common import add_common_flags, args_to_config, process_group
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description="Source-only segmentation training")
     add_common_flags(p, adversarial=False)
     args = p.parse_args(argv)
-    cfg = args_to_config(args, adversarial=False)
-    return run_experiment(cfg, run_name=args.run_name, measure_performance=not args.no_perf, device=args.device)
+    with process_group(args.device):
+        cfg = args_to_config(args, adversarial=False)
+        return run_experiment(cfg, run_name=args.run_name, measure_performance=not args.no_perf, device=args.device)
 
 
 def entry() -> int:

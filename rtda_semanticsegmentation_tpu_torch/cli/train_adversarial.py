@@ -17,6 +17,12 @@ Examples::
         --generator_model bisenet --generator_optimizer sgd --epochs 50 \
         --gta5_path ./data/GTA5 --cityscapes_path ./data/Cityscapes \
         --use_lovasz
+
+    # data parallel on 8 GPUs of one host (the global --batch_size split
+    # over them; two ranks on the CPU: --nproc_per_node 2 ... --device cpu)
+    python -m torch.distributed.run --nproc_per_node 8 \
+        -m rtda_semanticsegmentation_tpu_torch.cli.train_adversarial \
+        --preset bisenet_adversarial_lovasz --batch_size 64
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import argparse
 import dataclasses
 
 from ..train.loop import run_experiment
-from .common import add_common_flags, args_to_config
+from .common import add_common_flags, args_to_config, process_group
 
 
 def main(argv=None):
@@ -38,14 +44,15 @@ def main(argv=None):
     p.add_argument("--target_dataset", default=None, choices=("cityscapes", "synthetic"),
                    help="Unlabeled target stream (default cityscapes, its train split).")
     args = p.parse_args(argv)
-    cfg = args_to_config(args, adversarial=True)
-    if args.target_dataset:
-        cfg = cfg.replace(data=dataclasses.replace(cfg.data, adversarial_target_dataset=args.target_dataset))
-    adv_over = {k: v for k, v in {"lambda_adv": args.lambda_adv, "disc_learning_rate": args.disc_lr}.items()
-                if v is not None}
-    if adv_over:
-        cfg = cfg.replace(adversarial=dataclasses.replace(cfg.adversarial, **adv_over))
-    return run_experiment(cfg, run_name=args.run_name, measure_performance=not args.no_perf, device=args.device)
+    with process_group(args.device):
+        cfg = args_to_config(args, adversarial=True)
+        if args.target_dataset:
+            cfg = cfg.replace(data=dataclasses.replace(cfg.data, adversarial_target_dataset=args.target_dataset))
+        adv_over = {k: v for k, v in {"lambda_adv": args.lambda_adv, "disc_learning_rate": args.disc_lr}.items()
+                    if v is not None}
+        if adv_over:
+            cfg = cfg.replace(adversarial=dataclasses.replace(cfg.adversarial, **adv_over))
+        return run_experiment(cfg, run_name=args.run_name, measure_performance=not args.no_perf, device=args.device)
 
 
 def entry() -> int:

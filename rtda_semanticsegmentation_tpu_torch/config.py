@@ -7,9 +7,10 @@ copy so that it, and ``chip_smoke.py`` on a GPU machine, import nothing of
 the JAX package. The port's functions read these configs by attribute, so
 the JAX package's own config objects work as well.
 
-The port has no ``MeshConfig``: it runs on one device (a mesh of more than
-one is ROADMAP queue 1 item 8, multi-GPU). ``ModelConfig.fast_input`` is
-not carried (queue 1 item 9).
+``MeshConfig`` is the JAX package's: ``data`` spans the ranks of a
+``torch.distributed`` process group, one device each
+(``parallel/mesh.py``); a ``model`` axis above 1 is not ported.
+``ModelConfig.fast_input`` is not carried.
 """
 
 from __future__ import annotations
@@ -158,6 +159,19 @@ class LossConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The data-parallel layout (the JAX package's ``MeshConfig``): ``data``
+    ranks, one device each, the global batch split over them; -1 takes
+    every rank of the process group. ``model`` is the JAX package's
+    tensor-parallel axis, 1 here."""
+
+    data: int = -1
+    model: int = 1
+    data_axis_name: str = "data"
+    model_axis_name: str = "model"
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     seed: int = 42
     epochs: int = 50
@@ -207,6 +221,7 @@ class ExperimentConfig:
     adversarial: AdversarialConfig = field(default_factory=AdversarialConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     augment: AugmentConfig = field(default_factory=AugmentConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     obs: ObservabilityConfig = field(default_factory=ObservabilityConfig)
 

@@ -23,15 +23,23 @@
 // products, which were only a stand-in for a scatter:
 // - integer sums: the count and the foreground count of a bin share one u32
 //   (16 bits each: the wrapper gives no block more than 65535 pixels), and
-//   the error sums are u64 fixed-point numbers, round(s * 2^40), held in
+//   the error sums are u64 fixed-point numbers, s * 2^40, held in
 //   shared memory as two u32 words with an explicit carry (add_run: on sm_90
 //   only the u32 shared atomic add is one instruction; f32 and u64 adds are
 //   compare-and-swap loops, which stalled the earlier design's f32 error
 //   sums wherever lanes collided on a hot bucket). The sums of the shared
 //   and global histograms are then independent of the order of the
-//   atomics, and with a fixed grid the whole histogram is the same bits on
-//   every run; 2^24 - 1 valid pixels (the wrapper's limit) times the largest
-//   error, 1.0 = 2^40, still fit in 64 bits;
+//   atomics; 2^24 - 1 valid pixels (the wrapper's per-launch limit) times
+//   the largest error, 1.0 = 2^40, still fit in 64 bits;
+// - exact sums, whatever the cut: each error term is bf16(e) rounded to a
+//   multiple of 2^-(log2(bins) + 16) (quantize; only terms of bucket 0 move:
+//   a term of bucket k >= 1 lies on that grid already), so a run's f32 sum
+//   of fewer than 256 terms, all in one bucket, is exact and so is its
+//   conversion to 2^-40 fixed point. The integer histogram is then the sum
+//   of every term's own fixed-point value, the same bits however the pixels
+//   are cut into blocks, launches or ranks. With out == nullptr a launch
+//   leaves that integer histogram in the workspace (the wrapper adds several
+//   launches' and finalizes once);
 // - no warp votes: each thread keeps, per class, a run in registers (the
 //   bucket it saw last for a background pixel, its count and the f32 sum of
 //   its bf16 errors, fewer than 256 terms) and one run for its foreground
@@ -51,8 +59,8 @@
 // - one launch: each block adds its nonzero entries into one (C, bins)
 //   workspace of u64 [count | fg << 32] and u64 error sums with global
 //   atomics (zeroed by a memset on the same stream), and the last block to
-//   finish converts it to (C, 3, bins) f32. No per-block partial
-//   histograms, no second pass;
+//   finish converts it to (C, 3, bins) f32, each sum rounded once. No
+//   per-block partial histograms, no second pass;
 // - where the whole histogram does not fit a block's shared memory (C = 19
 //   at 1024 bins needs 233,472 B), a second grid dimension splits the
 //   classes into groups of cg, and each block bins one group; at 256 bins
@@ -102,6 +110,12 @@ __device__ __forceinline__ float error(bool fg, float p) {
 
 __device__ __forceinline__ unsigned long long fixed(float ev) { return __float2ull_rn(ev * kFixScale); }
 
+// bf16(e) on the grid of multiples of 1 / scale, scale = bins * 2^16: exact
+// for e >= 1 / bins (bucket >= 1), rounded to nearest even below it
+__device__ __forceinline__ float quantize(float ev, float scale, float inv_scale) {
+  return __fmul_rn(rintf(__fmul_rn(ev, scale)), inv_scale);
+}
+
 // Adds a run (cf: count | fg << 16, v: its u64 error sum) into the bin at
 // shared address `at` of a block's histogram, whose low and high words of
 // the error sums lie `words` bytes and twice that after the counts. Shared
@@ -142,7 +156,7 @@ struct Vec<1> {
 // the pixels, V neighbouring pixels a thread at a time, into its shared
 // histogram, adds that into the workspace ws ([C * bins] u64 count | fg << 32,
 // [C * bins] u64 error sums, one u32 counter of finished blocks), and the
-// last block writes out (C, 3, bins) f32.
+// last block writes out (C, 3, bins) f32, unless out is null.
 template <int kCg, int V>
 __global__ void __launch_bounds__(kThreads, kCg <= kSmallGroup ? 3 : 2)
 lovasz_hist_kernel(const float* __restrict__ probas, const int* __restrict__ labels,
@@ -166,6 +180,8 @@ lovasz_hist_kernel(const float* __restrict__ probas, const int* __restrict__ lab
   for (int c = 0; c < kCg; ++c) run[c] = 0u, run_sum[c] = 0.0f;
   // shared addresses: bin `slot` of the counts at base + 4 slot
   const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(s_cf)), words = 4u * size;
+  // the error terms' grid (quantize)
+  const float scale = static_cast<float>(bins) * 65536.0f, inv_scale = 1.0f / scale;
   // the foreground run: slot c * bins + bucket (-1: none), count, error sum
   int fg_slot = -1;
   unsigned fg_n = 0u;
@@ -202,7 +218,7 @@ lovasz_hist_kernel(const float* __restrict__ probas, const int* __restrict__ lab
         if (lab[j] == c0 + c) p_fg[j] = pj;
         bg[j] = lab[j] != ignore && lab[j] != c0 + c;
         k[j] = bucket(fabsf(pj), bins);
-        ev[j] = bf16_round(fabsf(pj));
+        ev[j] = quantize(bf16_round(fabsf(pj)), scale, inv_scale);
       }
       // a run ends where a background element leaves its bucket: only the
       // flush branches (and only where some lane of the warp flushes), the
@@ -229,7 +245,7 @@ lovasz_hist_kernel(const float* __restrict__ probas, const int* __restrict__ lab
         fg_slot = slot, fg_n = 0u, fg_sum = 0.0f;
       }
       ++fg_n;
-      fg_sum += bf16_round(e);
+      fg_sum += quantize(bf16_round(e), scale, inv_scale);
     }
   }
 #pragma unroll
@@ -252,6 +268,7 @@ lovasz_hist_kernel(const float* __restrict__ probas, const int* __restrict__ lab
       atomicAdd(ws_err + c0 * bins + i, static_cast<unsigned long long>(s_hi[i]) << 32 | s_lo[i]);
     }
   }
+  if (out == nullptr) return;  // the integer histogram stays in ws
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) s_last = atomicAdd(done, 1u) == gridDim.x * gridDim.y - 1;
@@ -325,7 +342,8 @@ int launch_hist(const void* probas, const void* labels, void* ws, void* out, int
 // blocks: blocks per class group, each taking at most 65535 pixels; cg:
 // classes per group (C for one group); vec: 4 pixels a thread (N a multiple
 // of 4, probas and labels 16-byte aligned). ws: 2 * C * bins + 1 u64 of
-// scratch, zeroed here.
+// scratch, zeroed here; out null: no finalize, ws keeps the integer
+// histogram ([C * bins] count | fg << 32, [C * bins] error sums * 2^40).
 extern "C" int lovasz_hist_launch(const void* probas, const void* labels, void* ws, void* out, int B, int C,
                                   int N, int bins, int ignore, int blocks, int cg, int vec, void* stream) {
   if (C < 1 || blocks < 1 || cg < 1 || cg > C || cg > kMaxClasses || (vec && N % 4)) return cudaErrorInvalidValue;

@@ -194,12 +194,18 @@ class FoldableBatchNorm(nn.Module):
       ``var * n / (n - 1)``. A gate BN over (B, C, 1, 1) reduces over the
       batch only (n = B). Inside :func:`running_stats_held` the running
       statistics stay as they are.
+    - Data parallel (``self.mesh``, a ``parallel.MeshContext`` of more than
+      one rank, set by :func:`sync_batch_norm`): the statistics of the
+      global batch, as JAX's SPMD BatchNorm computes them: one autograd sum
+      over the ranks of ``[Σx, Σx², n]`` in at least f32, ``n`` the global
+      count in the unbiased factor too.
     """
 
     def __init__(self, ch, eps=1e-5, momentum=0.9):
         super().__init__()
         self.eps, self.momentum = eps, momentum
         self.update_running_stats = True
+        self.mesh = None
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
@@ -212,9 +218,17 @@ class FoldableBatchNorm(nn.Module):
             )
         else:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(dim=(0, 2, 3))
-            var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
             n = x.numel() // x.shape[1]
+            if self.mesh is not None and self.mesh.world > 1:
+                c = x.shape[1]
+                count = torch.full((1,), float(n), dtype=xf.dtype, device=x.device)
+                sums = self.mesh.sum(torch.cat([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)), count]))
+                n = sums[2 * c]
+                mean = sums[:c] / n
+                var = sums[c: 2 * c] / n - mean.square()
+            else:
+                mean = xf.mean(dim=(0, 2, 3))
+                var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
             if self.update_running_stats:
                 self._update_running_stats(mean, var, n)
             mul = self.weight * torch.rsqrt(var + self.eps)
@@ -222,10 +236,22 @@ class FoldableBatchNorm(nn.Module):
         return x * mul.to(x.dtype).view(1, -1, 1, 1) + add.to(x.dtype).view(1, -1, 1, 1)
 
     @torch.no_grad()
-    def _update_running_stats(self, mean, var, n: int) -> None:
+    def _update_running_stats(self, mean, var, n) -> None:
+        """``n``: the count, an int or (data parallel) a device scalar."""
         m = self.momentum
+        unbiased = n / max(n - 1, 1) if isinstance(n, int) else n / (n - 1).clamp_min(1)
         self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-        self.running_var.copy_(m * self.running_var + (1 - m) * var * (n / max(n - 1, 1)))
+        self.running_var.copy_(m * self.running_var + (1 - m) * var * unbiased)
+
+
+def sync_batch_norm(model: nn.Module, mesh) -> nn.Module:
+    """Give every :class:`FoldableBatchNorm` of ``model`` the data-parallel
+    layout ``mesh`` (a ``parallel.MeshContext``; None for per-process
+    statistics). Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, FoldableBatchNorm):
+            m.mesh = mesh
+    return model
 
 
 @contextlib.contextmanager

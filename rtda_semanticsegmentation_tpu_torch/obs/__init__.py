@@ -1,9 +1,10 @@
-"""Observability: metric logging (jsonl, W&B, null), performance profiling
-and the per-module FLOP table."""
+"""Observability: metric logging (jsonl, W&B, null), performance profiling,
+a timeline trace, the per-module parameter table and the per-module FLOP
+table."""
 
 from .logging import MetricLogger, make_logger
-from .profiler import count_params, performance_metrics
-from .summary import flop_count_table, flops_and_params
+from .profiler import count_params, performance_metrics, trace
+from .summary import flop_count_table, flops_and_params, model_summary_table
 
 __all__ = [
     "MetricLogger",
@@ -12,4 +13,6 @@ __all__ = [
     "performance_metrics",
     "flops_and_params",
     "flop_count_table",
+    "model_summary_table",
+    "trace",
 ]

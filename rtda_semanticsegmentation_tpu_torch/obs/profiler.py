@@ -1,5 +1,5 @@
-"""Performance profiling: parameters, FLOPs, eval-forward latency (port of
-the JAX package's ``obs/profiler.py``).
+"""Performance profiling: parameters, FLOPs, eval-forward latency and a
+timeline trace (port of the JAX package's ``obs/profiler.py``).
 
 The reference's protocol: batch 1 at the eval size, 10 warm-up and 100
 timed forwards. On a CUDA device the forwards are timed by CUDA events; on
@@ -12,7 +12,9 @@ counts elementwise work, so the two totals differ.
 
 from __future__ import annotations
 
+import os
 import time
+from contextlib import contextmanager
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -116,3 +118,24 @@ def performance_metrics(model: torch.nn.Module, height: int = 512, width: int = 
         "params_m": round(count_params(model) / 1e6, 2),
         **{k: round(v, 3) for k, v in lat.items()},
     }
+
+
+@contextmanager
+def trace(log_dir: str = "logs/trace"):
+    """A ``torch.profiler`` timeline trace around a block (the host, and the
+    card where there is one), written as ``<log_dir>/trace_<pid>_<n>.json``
+    for chrome://tracing or Perfetto. Yields the profiler."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    cuda = torch.cuda.is_available()
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        if cuda:
+            torch.cuda.synchronize()
+        prof.stop()
+        os.makedirs(log_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.monotonic_ns()}.json"))

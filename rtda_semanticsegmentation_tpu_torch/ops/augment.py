@@ -13,6 +13,12 @@ draws to the core. ``torch.Generator`` and ``jax.random`` draw different
 numbers from one seed; only the laws agree. Like the JAX ops under
 ``vmap``, a core computes its result for every image and a per-image flag
 selects it.
+
+Data parallel: a rank holding rows ``lo .. lo + b`` of a global batch of
+``n`` (``rows=(lo, n)``) draws every factor and noise field for all ``n``
+images from the same seeded generator, as the one process of an
+unsharded run does, and keeps its rows; its augmented rows are then those
+of the unsharded batch.
 """
 
 from __future__ import annotations
@@ -177,36 +183,45 @@ def coarse_dropout(img, n, hh, ww, uy, ux, fill: float = 0.0):
     return torch.where(inside.unsqueeze(-1), torch.full((), value, dtype=img.dtype, device=img.device), img)
 
 
-def _maybe(generator, p: float, fn, img):
-    """``fn(img)`` for the images whose draw fires (probability ``p``)."""
-    on = torch.rand((img.shape[0],), generator=generator, device=generator.device) < p
-    return torch.where(_per_image(on), fn(img), img)
+def _mine(draws: dict, rows, b: int) -> dict:
+    """This rank's rows of draws made for the whole batch."""
+    return {k: v[rows[0]: rows[0] + b] for k, v in draws.items()}
 
 
-def augment_batch(images_u8, labels, generator, cfg: AugmentConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def augment_batch(images_u8, labels, generator, cfg: AugmentConfig, rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The train pipeline on a (B, H, W, 3) uint8 batch and its (B, H, W)
     labels; returns (normalized f32 images, labels). Labels change only
-    under the horizontal flip. ``generator`` lives on the batch's device."""
+    under the horizontal flip. ``generator`` lives on the batch's device.
+    ``rows=(lo, n)``: the batch is rows ``lo .. lo + B`` of a global batch
+    of ``n``, whose draws are made and cut to these rows."""
     hflip, cj, iso, cd = cfg.flags
     b = images_u8.shape[0]
+    rows = rows or (0, b)
+    n, dev = rows[1], generator.device
+
+    def fires():
+        """The images whose draw fires (probability ``cfg.prob``)."""
+        return _per_image(_mine({"on": torch.rand((n,), generator=generator, device=dev) < cfg.prob}, rows, b)["on"])
+
     if hflip:
-        flip = torch.rand((b,), generator=generator, device=generator.device) < cfg.prob
-        images_u8 = torch.where(_per_image(flip), images_u8.flip(2), images_u8)
-        labels = torch.where(_per_image(flip, 3), labels.flip(2), labels)
+        flip = fires()
+        images_u8 = torch.where(flip, images_u8.flip(2), images_u8)
+        labels = torch.where(flip[..., 0], labels.flip(2), labels)
     if not (cj or iso or cd):
         return normalize(images_u8.to(torch.float32) / 255.0, cfg), labels
     dt = aug_dtype(cfg)
     imgs = images_u8 if dt == torch.uint8 else (images_u8.to(torch.float32) / 255.0).to(dt)
     if cj:
-        imgs = _maybe(generator, cfg.prob,
-                      lambda x: color_jitter(x, **draw_color_jitter(generator, b, cfg)), imgs)
+        on = fires()
+        imgs = torch.where(on, color_jitter(imgs, **_mine(draw_color_jitter(generator, n, cfg), rows, b)), imgs)
     if iso:
-        imgs = _maybe(generator, cfg.prob,
-                      lambda x: iso_noise(x, **draw_iso_noise(generator, x.shape[:3], cfg)), imgs)
+        on = fires()
+        draws = _mine(draw_iso_noise(generator, (n,) + tuple(imgs.shape[1:3]), cfg), rows, b)
+        imgs = torch.where(on, iso_noise(imgs, **draws), imgs)
     if cd:
-        imgs = _maybe(generator, cfg.prob,
-                      lambda x: coarse_dropout(x, **draw_coarse_dropout(generator, b, cfg),
-                                               fill=cfg.cd_fill), imgs)
+        on = fires()
+        draws = _mine(draw_coarse_dropout(generator, n, cfg), rows, b)
+        imgs = torch.where(on, coarse_dropout(imgs, **draws, fill=cfg.cd_fill), imgs)
     imgs = imgs.to(torch.float32)
     if dt == torch.uint8:
         imgs = imgs / 255.0

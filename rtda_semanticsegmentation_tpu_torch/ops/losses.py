@@ -14,6 +14,17 @@ computes in at least f32.
   PyTorch.
 - :func:`bce_with_logits`: the discriminator's mean binary cross-entropy
   against a constant target.
+
+Data parallel: given a ``mesh`` (a ``parallel.MeshContext``) of more than
+one rank, each loss returns this rank's share of the global loss, the
+JAX package's loss over the sharded batch: the shares sum over the ranks
+to the global value, and their gradients, summed over the ranks, to the
+global loss's gradient. CE ``mean`` divides by the global valid-pixel
+count, ``mean_per_image`` by the global image count; the binned Lovász
+loss sums K1's integer histograms over the ranks (the exact global
+histogram) and K2 runs on the local pixels with the global tables; the
+exact-sort Lovász gathers the global probabilities; the BCE scales the
+local mean by the rank's share of the batch.
 """
 
 from __future__ import annotations
@@ -24,16 +35,22 @@ import torch.nn.functional as F
 from ..kernels import lovasz as klov
 
 
+def _world(mesh) -> int:
+    return 1 if mesh is None else mesh.world
+
+
 def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
-def cross_entropy_with_ignore(logits, labels, ignore_index: int = 255, reduction: str = "mean"):
+def cross_entropy_with_ignore(logits, labels, ignore_index: int = 255, reduction: str = "mean", mesh=None):
     """Softmax cross-entropy over (B, C, ...) logits with an ignore label.
 
     ``reduction``: ``mean`` over every valid pixel of the batch,
     ``mean_per_image`` (the mean over each image's valid pixels, then over
-    the images) or ``none`` (per-pixel losses, 0 at ignored pixels)."""
+    the images) or ``none`` (per-pixel losses, 0 at ignored pixels). With a
+    ``mesh`` of several ranks the batch is the global one and the result
+    this rank's share."""
     labels = labels.long()
     valid = labels != ignore_index
     pixel = F.cross_entropy(_at_least_f32(logits), torch.where(valid, labels, 0), reduction="none")
@@ -41,11 +58,14 @@ def cross_entropy_with_ignore(logits, labels, ignore_index: int = 255, reduction
     if reduction == "none":
         return pixel
     if reduction == "mean":
-        return pixel.sum() / valid.sum().clamp_min(1)
+        count = valid.sum()
+        if _world(mesh) > 1:
+            count = mesh.sum_(count)
+        return pixel.sum() / count.clamp_min(1)
     if reduction == "mean_per_image":
         b = pixel.shape[0]
         per_img = pixel.reshape(b, -1).sum(1) / valid.reshape(b, -1).sum(1).clamp_min(1)
-        return per_img.mean()
+        return per_img.mean() if _world(mesh) == 1 else per_img.sum() / (b * mesh.world)
     raise ValueError(f"unknown reduction {reduction!r}")
 
 
@@ -61,13 +81,28 @@ def _class_rows(probas, labels, ignore_index):
     return rows, labels, valid
 
 
-def lovasz_softmax(probas, labels, ignore_index=255, classes: str = "present"):
+def _gathered(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The global batch of a rank-local ``x``: each rank's rows written
+    into a zero-filled global buffer and summed over the ranks (gloo has no
+    ``all_gather`` of CUDA tensors); the sum carries the gradient back to
+    each rank's rows."""
+    lo, total = mesh.rows(x.shape[0])
+    rest = tuple(x.shape[1:])
+    full = torch.cat([x.new_zeros((lo,) + rest), x, x.new_zeros((total - lo - x.shape[0],) + rest)])
+    return mesh.sum(full)
+
+
+def lovasz_softmax(probas, labels, ignore_index=255, classes: str = "present", mesh=None):
     """Exact Lovász-Softmax over (B, C, H, W) probabilities: each class's
     errors in descending order (a stable sort, ignored pixels last with no
     contribution), averaged over the classes present (``present``) or all
-    classes (``all``)."""
+    classes (``all``). With a ``mesh`` of several ranks: the loss of the
+    gathered global batch, this rank's share of it."""
     if classes not in ("present", "all"):
         raise ValueError(f"classes must be 'present' or 'all', got {classes!r}")
+    if _world(mesh) > 1:
+        loss = lovasz_softmax(_gathered(probas, mesh), _gathered(labels, mesh), ignore_index, classes)
+        return loss / mesh.world
     p, labels, valid = _class_rows(probas, labels, ignore_index)
     c = p.shape[0]
     validf = valid.to(p.dtype)
@@ -153,16 +188,25 @@ def _binned_lovasz_forward(hists, classes: str, interp: bool):
 class LovaszSoftmaxBinned(torch.autograd.Function):
     """Forward: K1 histograms + post-processing. Backward: the cotangent and
     ``1 / present_cnt`` fold into the tables, then K2. Gradient for the
-    probabilities only."""
+    probabilities only.
+
+    With a ``mesh`` of several ranks the histograms are K1's integer sums
+    added over the ranks and finalized once, the exact global histogram, so
+    every rank holds the same loss L and tables. The forward returns the
+    share L / world; the backward gives the local pixels their gradient of
+    L, so that the ranks' gradients sum to the global one."""
 
     @staticmethod
-    def forward(ctx, probas, labels, ignore_index, classes, bins, interp):
+    def forward(ctx, probas, labels, ignore_index, classes, bins, interp, mesh=None):
         p, lab, ignore = _kernel_operands(probas, labels, ignore_index)
-        hists = klov.lovasz_hist(p, lab, bins, ignore)
+        if _world(mesh) > 1:
+            hists = klov.finalize_hist(mesh.sum_(klov.lovasz_hist_raw(p, lab, bins, ignore)))
+        else:
+            hists = klov.lovasz_hist(p, lab, bins, ignore)
         loss, tables, present_cnt = _binned_lovasz_forward(hists, classes, interp)
         ctx.save_for_backward(p, lab, tables, present_cnt)
         ctx.meta = (probas.shape, probas.dtype, ignore, bins, interp)
-        return loss
+        return loss / _world(mesh) if _world(mesh) > 1 else loss
 
     @staticmethod
     def backward(ctx, g):
@@ -170,25 +214,28 @@ class LovaszSoftmaxBinned(torch.autograd.Function):
         shape, dtype, ignore, bins, interp = ctx.meta
         scale = torch.where(present_cnt > 0, g / present_cnt.clamp_min(1.0), torch.zeros_like(g))
         grad = klov.lovasz_bwd(p, lab, (tables * scale).contiguous(), bins, ignore, interp)
-        return grad.reshape(shape).to(dtype), None, None, None, None, None
+        return grad.reshape(shape).to(dtype), None, None, None, None, None, None
 
 
 def lovasz_softmax_binned(probas, labels, ignore_index=255, classes: str = "present",
-                          bins: int = 256, interp: bool = True):
+                          bins: int = 256, interp: bool = True, mesh=None):
     """Counting-sort Lovász-Softmax over (B, C, H, W) probabilities:
     errors binned into ``bins`` equal-width buckets, processed in
     descending order; the JAX package's ``lovasz_softmax_binned`` with the
-    same ``classes``, ``bins`` and ``interp`` semantics."""
+    same ``classes``, ``bins`` and ``interp`` semantics. With a ``mesh`` of
+    several ranks: this rank's share of the global batch's loss."""
     _radix_factors(bins)
-    return LovaszSoftmaxBinned.apply(probas, labels, ignore_index, classes, bins, interp)
+    return LovaszSoftmaxBinned.apply(probas, labels, ignore_index, classes, bins, interp, mesh)
 
 
-def bce_with_logits(logits: torch.Tensor, targets) -> torch.Tensor:
+def bce_with_logits(logits: torch.Tensor, targets, mesh=None) -> torch.Tensor:
     """Mean binary cross-entropy with logits against a broadcast target, in
     at least f32, in the JAX package's stable form
     ``max(x, 0) - x z + log1p(exp(-|x|))`` (``torch.maximum`` splits the
-    gradient at a tie as ``jnp.maximum`` does)."""
+    gradient at a tie as ``jnp.maximum`` does). With a ``mesh`` of several
+    ranks, the local mean times the rank's share of the global batch."""
     x = _at_least_f32(logits)
     z = torch.as_tensor(targets, dtype=x.dtype, device=x.device)
     loss = torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device)) - x * z
-    return (loss + torch.log1p(torch.exp(-x.abs()))).mean()
+    mean = (loss + torch.log1p(torch.exp(-x.abs()))).mean()
+    return mean if _world(mesh) == 1 else mean / mesh.world

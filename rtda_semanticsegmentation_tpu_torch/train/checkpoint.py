@@ -13,7 +13,10 @@ Layout: ``<checkpoint_dir>/<run_name or model[_adversarial_GTA2City]>/
 <stream name>/checkpoint.pt``. A write goes to a temporary file that
 ``os.replace`` then puts in place, so a reader never sees half a file.
 Saves are synchronous: :meth:`CheckpointManager.wait` has nothing to wait
-for. A restore maps the tensors onto the run's device.
+for. A restore maps the tensors onto the run's device. Data parallel (a
+``mesh``): the ranks hold the same state, so rank 0 writes and every rank
+waits at a barrier until the file is in place; each rank restores onto its
+own device.
 """
 
 from __future__ import annotations
@@ -51,12 +54,13 @@ def _state_tree(state: TrainState, epoch: int, per_class_ious=None, host_batches
 class CheckpointManager:
     """The best and latest checkpoint streams of one run, and resume."""
 
-    def __init__(self, cfg: ExperimentConfig, run_name: str = "", device="cpu"):
+    def __init__(self, cfg: ExperimentConfig, run_name: str = "", device="cpu", mesh=None):
         suffix = "_adversarial_GTA2City" if cfg.adversarial.enabled else ""
         name = run_name or f"{cfg.model.name}{suffix}"
         self.root = os.path.abspath(os.path.join(cfg.train.checkpoint_dir, name))
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
         self._streams = {"best": cfg.train.best_checkpoint_name, "latest": cfg.train.periodic_checkpoint_name}
         for d in (self.best_dir, self.latest_dir):  # both streams exist from the start, as Orbax's
             os.makedirs(d, exist_ok=True)
@@ -78,14 +82,17 @@ class CheckpointManager:
     # -- save ---------------------------------------------------------------
 
     def _write(self, directory: str, tree: dict) -> None:
-        path = os.path.join(directory, FILENAME)
-        tmp = f"{path}.tmp-{os.getpid()}"
-        try:
-            torch.save(tree, tmp)
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+        if self.mesh is None or self.mesh.is_main:
+            path = os.path.join(directory, FILENAME)
+            tmp = f"{path}.tmp-{os.getpid()}"
+            try:
+                torch.save(tree, tmp)
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def save_best(self, state: TrainState, epoch: int, per_class_ious, host_batches_per_epoch: int = 0) -> None:
         self._write(self.best_dir, _state_tree(state, epoch, per_class_ious, host_batches_per_epoch))

@@ -6,7 +6,10 @@ image's CE mean (the reference's batch-1 loss, kept under batching) and the
 number of valid images, all on the device. :func:`evaluate` adds them up on
 the device, brings them to the host once, and computes the IoUs there in
 f64. The histogram is int64 from the start (``ops/metrics.py``), so no
-flush to the host is needed before a cell could overflow.
+flush to the host is needed before a cell could overflow. Data parallel
+(a ``mesh``): each rank evaluates its slice of every batch
+(``data/loader.py::eval_batches``) and the ranks' histograms, loss sums
+and image counts are summed before the IoUs.
 """
 
 from __future__ import annotations
@@ -61,11 +64,13 @@ def make_eval_step(cfg: ExperimentConfig, apply_fn: Callable = apply_model):
     return eval_step
 
 
-def evaluate(eval_step: Callable, variables, batches: Iterable, num_classes: int = 19) -> Dict[str, object]:
-    """Run ``eval_step`` over ``(images_u8, labels, img_valid)`` batches.
+def evaluate(eval_step: Callable, variables, batches: Iterable, num_classes: int = 19, mesh=None) -> Dict[str, object]:
+    """Run ``eval_step`` over ``(images_u8, labels, img_valid)`` batches
+    (with a ``mesh``: this rank's slices, every rank the same number).
 
     Returns ``miou``, ``loss`` (the mean over valid images), ``per_class_iou``
-    (f64 numpy), ``hist`` (int64 numpy), ``num_images`` and ``batches``."""
+    (f64 numpy), ``hist`` (int64 numpy), ``num_images`` and ``batches``, of
+    all ranks together."""
     hist = loss_sum = count = None
     n = 0
     for images_u8, labels, img_valid in batches:
@@ -75,6 +80,9 @@ def evaluate(eval_step: Callable, variables, batches: Iterable, num_classes: int
         else:
             hist, loss_sum, count = hist + h, loss_sum + ls, count + c
         n += 1
+    if hist is not None and mesh is not None and mesh.world > 1:
+        hist = mesh.sum_(hist)
+        loss_sum, count = mesh.sum_(torch.stack([loss_sum, count]).to(torch.float64))
     if hist is None:
         hist_np = np.zeros((num_classes, num_classes), np.int64)
         loss, images = 0.0, 0.0

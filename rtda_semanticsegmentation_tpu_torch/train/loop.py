@@ -20,6 +20,14 @@ epoch end's), so a device left waiting for the host, for the next batch
 among others, counts that wait; the host's wait for each batch (an epoch's
 first wait comes before any event of the epoch); the eval time per batch
 and each checkpoint save's seconds.
+
+Data parallel (``cfg.mesh`` over a ``torch.distributed`` process group,
+``parallel/``): each rank loads its rows of every global batch, trains
+with the global BatchNorm statistics, losses and gradients, evaluates its
+slice of the validation set into the global confusion matrix, and agrees on
+a SIGTERM every ``PREEMPT_SYNC_EVERY`` steps. Rank 0 alone prints, logs,
+writes checkpoints (the others wait at a barrier), traces and makes the
+final report's latency, FLOPs and int8 evaluation.
 """
 
 from __future__ import annotations
@@ -48,9 +56,10 @@ from ..models.factory import (
     init_model,
     load_variables,
 )
-from ..models.layers import fold_kernel_operands
+from ..models.layers import fold_kernel_operands, sync_batch_norm
 from ..obs import make_logger, performance_metrics
 from ..ops.augment import normalize_u8
+from ..parallel import create_mesh, sync_any_flag
 from .checkpoint import CheckpointManager
 from .evaluate import apply_model, evaluate, make_eval_step
 from .optim import build_discriminator_tx, build_generator_tx
@@ -60,6 +69,7 @@ from .steps import make_train_step
 
 AUG_SEED_OFFSET = 17  # the augmentation stream's seed is train.seed + 17, as in JAX
 TRACE_SKIP = 3  # warm steps before a profile_steps trace starts
+PREEMPT_SYNC_EVERY = 16  # steps between the ranks' agreements on a SIGTERM, as in JAX
 _MASK64 = (1 << 64) - 1
 
 
@@ -110,26 +120,30 @@ def _host_scalars(tensors: Dict[str, torch.Tensor]) -> Dict[str, float]:
 
 class Trainer:
     """Everything an experiment needs, built once from its config, on
-    ``device``."""
+    ``device`` (a CUDA device without an index: this rank's card)."""
 
     def __init__(self, cfg: ExperimentConfig, device="cuda"):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = create_mesh(cfg.mesh, device)
+        self.device = resolve_device(self.mesh.device)
         t = cfg.train
         workers = cfg.data.resolved_num_workers()
+        self.mesh.check_batch(t.batch_size)
+        self.mesh.check_batch(cfg.data.eval_batch_size, "eval batch")
+        shard = {"process_index": self.mesh.rank, "process_count": self.mesh.world}
 
         # --- data ---
         self.train_ds = build_dataset(cfg.data.train_dataset, "train", cfg.train_size, cfg.data)
         self.val_ds = build_dataset(cfg.data.val_dataset, "val", cfg.eval_size, cfg.data)
         self.train_loader = Loader(self.train_ds, t.batch_size, shuffle=True, drop_last=True, seed=t.seed,
-                                   num_workers=workers)
+                                   num_workers=workers, **shard)
         self.target_loader: Optional[InfiniteLoader] = None
         if cfg.adversarial.enabled:
             # the target stream at the train resolution
             target_ds = build_dataset(cfg.data.adversarial_target_dataset, cfg.data.adversarial_target_split,
                                       cfg.data.train_size_override or cfg.data.cityscapes_size, cfg.data)
             self.target_loader = InfiniteLoader(Loader(target_ds, t.batch_size, shuffle=True, drop_last=True,
-                                                       seed=t.seed + 1, num_workers=workers))
+                                                       seed=t.seed + 1, num_workers=workers, **shard))
 
         if cfg.data.train_dataset == "cityscapes" and cfg.augment.pipeline != "no_new_aug":
             warnings.warn(f"augmentation pipeline {cfg.augment.pipeline!r} is inert for a Cityscapes train "
@@ -160,7 +174,8 @@ class Trainer:
 
         # --- models and optimizers ---
         self.model = build_model(cfg.model, self.device, train=True)
-        init_model(self.model, torch.Generator().manual_seed(t.seed))
+        init_model(self.model, torch.Generator().manual_seed(t.seed))  # the same weights on every rank
+        sync_batch_norm(self.model, self.mesh)
         if cfg.model.pretrained_backbone:
             self.model.load_state_dict(load_npz_into_state(self.model.state_dict(), cfg.model.pretrained_backbone,
                                                            cfg.model.name))
@@ -184,10 +199,10 @@ class Trainer:
             self.state.discriminator = self.disc
             self.state.d_optimizer = build_discriminator_tx(cfg.adversarial, self.disc)
             self.state.d_schedule = d_sched
-        self.train_step = make_train_step(cfg, g_sched, d_sched)
+        self.train_step = make_train_step(cfg, g_sched, d_sched, mesh=self.mesh)
         self.eval_step = make_eval_step(cfg)
         # an explicit run name gets its own checkpoint directory
-        self.ckpt = CheckpointManager(cfg, run_name=cfg.obs.run_name or "", device=self.device)
+        self.ckpt = CheckpointManager(cfg, run_name=cfg.obs.run_name or "", device=self.device, mesh=self.mesh)
         self.aug_generator = torch.Generator(device=self.device)
         self.aug_seed = t.seed + AUG_SEED_OFFSET
         self.timings: Dict[str, list] = {"step_ms": [], "loader_wait_ms": [], "eval_ms_per_batch": [],
@@ -213,15 +228,20 @@ class Trainer:
             out = itertools.islice(out, steps)
         return out
 
-    def validate(self, eval_step=None, variables=None) -> Dict[str, Any]:
-        """Evaluate on the validation set; ``eval_step`` / ``variables``
-        replace the float model (the final int8 pass)."""
+    def validate(self, eval_step=None, variables=None, alone: bool = False) -> Dict[str, Any]:
+        """Evaluate on the validation set, each rank its slice of every
+        batch (``alone``: this rank all of it, no collective: the final
+        int8 pass on rank 0); ``eval_step`` / ``variables`` replace the
+        float model."""
         depth = self.cfg.data.prefetch_batches
-        batches = eval_batches(self.val_ds, self.cfg.data.eval_batch_size, self.cfg.data.resolved_num_workers())
+        mesh = None if alone else self.mesh
+        batches = eval_batches(self.val_ds, self.cfg.data.eval_batch_size, self.cfg.data.resolved_num_workers(),
+                               process_index=0 if alone else self.mesh.rank,
+                               process_count=1 if alone else self.mesh.world)
         batches = prefetch_to_device(lookahead(batches, depth), self.device, depth)
         t0 = time.perf_counter()
         out = evaluate(eval_step or self.eval_step, self.model if variables is None else variables, batches,
-                       self.cfg.model.num_classes)
+                       self.cfg.model.num_classes, mesh=mesh)
         self.timings["eval_ms_per_batch"].append((time.perf_counter() - t0) * 1e3 / max(out["batches"], 1))
         return out
 
@@ -393,17 +413,19 @@ def run_experiment(cfg: ExperimentConfig, run_name: Optional[str] = None, measur
     """Train, validate, checkpoint and report, on ``device``. Returns the
     report dict (with the ``trainer``, its ``state`` and ``timings``)."""
 
-    def say(msg: str) -> None:
-        if verbose:
-            print(msg, flush=True)
+    import dataclasses as _dc
 
     # one run name drives the logger and the checkpoint directory
     if run_name and not cfg.obs.run_name:
-        import dataclasses as _dc
-
         cfg = cfg.replace(obs=_dc.replace(cfg.obs, run_name=run_name))
     trainer = Trainer(cfg, device=device)
-    logger = make_logger(cfg, run_name)
+    mesh = trainer.mesh
+
+    def say(msg: str) -> None:
+        if verbose and mesh.is_main:
+            print(msg, flush=True)
+
+    logger = make_logger(cfg if mesh.is_main else cfg.replace(obs=_dc.replace(cfg.obs, backend="null")), run_name)
     t = cfg.train
     state = trainer.state
     best_per_class = None
@@ -414,11 +436,14 @@ def run_experiment(cfg: ExperimentConfig, run_name: Optional[str] = None, measur
         best_per_class = ious if ious is not None else best_per_class
 
     model = cfg.model.name if cfg.model.name == "deeplabv2" else f"{cfg.model.name}/{cfg.model.context_path}"
-    say(f"mode={cfg.train_mode} model={model} device={trainer.device} "
+    backend = torch.distributed.get_backend() if mesh.grouped else "none"
+    say(f"mode={cfg.train_mode} model={model} device={trainer.device} backend={backend} world={mesh.world} "
         f"steps/epoch={trainer.steps_per_epoch} max_iter={trainer.max_iter}")
 
-    # --- optional trace of a few warm steps ---
-    trace_dir = os.path.join(cfg.obs.log_dir, cfg.obs.run_name or "run", "trace") if t.profile_steps > 0 else None
+    # --- optional trace of a few warm steps, on rank 0 ---
+    trace_dir = None
+    if t.profile_steps > 0 and mesh.is_main:
+        trace_dir = os.path.join(cfg.obs.log_dir, cfg.obs.run_name or "run", "trace")
     profiler = None
     trace_stop_after = None
 
@@ -494,7 +519,12 @@ def run_experiment(cfg: ExperimentConfig, run_name: Optional[str] = None, measur
                 if watch_freq > 0 and host_step % watch_freq == 0:
                     logger.log(_host_scalars({k: v for k, v in metrics.items() if k.startswith("watch/")}),
                                host_step)
-                preempted = preempt.requested
+                # the flag lands on the ranks at different times: they agree
+                # on it at the same steps, or one would leave the collectives
+                if mesh.world == 1:
+                    preempted = preempt.requested
+                elif host_step % PREEMPT_SYNC_EVERY == 0:
+                    preempted = sync_any_flag(preempt.requested, trainer.device)
                 if preempted:
                     break
             clock.mark()
@@ -518,7 +548,7 @@ def run_experiment(cfg: ExperimentConfig, run_name: Optional[str] = None, measur
                 logger.log_validation(val["miou"], val["loss"], val["per_class_iou"], state.step)
                 say(f"  val mIoU={val['miou']:.4f} loss={val['loss']:.4f} ({int(val['num_images'])} images)")
                 # a mask overlay of the first val sample every log_images_freq_epoch
-                if (epoch + 1) % t.log_images_freq_epoch == 0 and len(trainer.val_ds):
+                if (epoch + 1) % t.log_images_freq_epoch == 0 and len(trainer.val_ds) and mesh.is_main:
                     try:
                         img_u8, label = trainer.val_ds.load(0)
                         pred = trainer.predict(img_u8[None])[0]
@@ -561,15 +591,16 @@ def run_experiment(cfg: ExperimentConfig, run_name: Optional[str] = None, measur
     }
     compute_dtype = getattr(torch, cfg.model.compute_dtype)
     perf_h, perf_w = cfg.eval_size
+    measure_performance = measure_performance and mesh.is_main
     if measure_performance:
         # at the eval resolution, batch 1, as the reference measures
         report.update(performance_metrics(trainer.model, height=perf_h, width=perf_w, iterations=t.latency_iterations,
                                           warmup=t.warmup_iterations, dtype=compute_dtype))
 
-    if t.final_int8_eval:
+    if t.final_int8_eval and mesh.is_main:
         # the best model served through the int8 PTQ path (kernel K3) on the
-        # validation set. Unlike the JAX package's loop, a failure here is
-        # not swallowed: it would hide a fault of K3.
+        # whole validation set, on rank 0. Unlike the JAX package's loop, a
+        # failure here is not swallowed: it would hide a fault of K3.
         from ..models.quantize import calibrate, freeze, quantized_model
 
         calib = []
@@ -582,7 +613,7 @@ def run_experiment(cfg: ExperimentConfig, run_name: Optional[str] = None, measur
         q_model = quantized_model(cfg.model, frozen=True, device=trainer.device)
         load_variables(q_model, q_vars)
         fold_kernel_operands(q_model)
-        q_val = trainer.validate(variables=q_model)
+        q_val = trainer.validate(variables=q_model, alone=True)
         report["int8_miou"] = float(q_val["miou"])
         report["int8_miou_delta"] = report["int8_miou"] - report["best_miou"]
 
@@ -608,7 +639,7 @@ def run_experiment(cfg: ExperimentConfig, run_name: Optional[str] = None, measur
 
     # a prediction gallery of the best model (6 samples), best-effort
     try:
-        for i in range(min(6, len(trainer.val_ds))):
+        for i in range(min(6, len(trainer.val_ds)) if mesh.is_main else 0):
             img_u8, label = trainer.val_ds.load(i)
             pred = trainer.predict(img_u8[None])[0]
             logger.log_segmentation_images(img_u8, label, pred, final_step, tag=f"best/prediction_{i}")

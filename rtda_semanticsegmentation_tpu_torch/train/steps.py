@@ -25,6 +25,18 @@ instead of keeping them. The recompute holds the BatchNorm running
 statistics (``models/layers.py::running_stats_held``), so they move once a
 forward, as in JAX, whose checkpoint is functional.
 
+Data parallel (a ``mesh``, ``parallel.MeshContext``): each rank holds its
+rows of the global batch. The augmentation draws are the global batch's,
+cut to the rank's rows; the BatchNorm statistics are the global batch's
+(``models/layers.py::sync_batch_norm``, which the caller applies); each
+loss is the rank's share of the global loss (``ops/losses.py``); after each
+backward one coalesced ``all_reduce`` per model sums the gradients. Not
+``DistributedDataParallel``: the adversarial step backpropagates G's loss
+through the updated D, whose gradients must be neither reduced nor
+applied, and DeepLabV2 has parameters outside its optimizer, on both of
+which DDP's reducer hooks misfire. The metrics are the global values: the
+shares summed over the ranks in one more ``all_reduce``.
+
 The step reads nothing back to the host, so it never waits for the device;
 its metrics are device tensors. It clears the gradients of the whole model
 before each backward, so a parameter outside the optimizer (DeepLabV2's
@@ -51,13 +63,14 @@ REAL_LABEL = 1.0  # source domain
 FAKE_LABEL = 0.0  # target domain
 
 
-def _prep_source(batch, generator, cfg: ExperimentConfig):
+def _prep_source(batch, generator, cfg: ExperimentConfig, mesh=None):
     """Augmentation + normalization of the uint8 source batch. A Cityscapes
     source and the ``no_new_aug`` pipeline get normalization only, at the
     compute dtype floored at f32."""
     images_u8, labels = batch["image"], batch["label"]
     if cfg.data.train_dataset != "cityscapes" and cfg.augment.pipeline != "no_new_aug":
-        return augment_batch(images_u8, labels, generator, cfg.augment)
+        rows = None if mesh is None else mesh.rows(images_u8.shape[0])
+        return augment_batch(images_u8, labels, generator, cfg.augment, rows=rows)
     dt = torch.promote_types(getattr(torch, cfg.model.compute_dtype), torch.float32)
     return normalize_u8(images_u8, cfg.augment, dtype=dt), labels
 
@@ -138,12 +151,12 @@ def _apply_train(model: torch.nn.Module, x: torch.Tensor, aux: bool, remat: bool
                       context_fn=lambda: (contextlib.nullcontext(), running_stats_held(model)))
 
 
-def _seg_loss(logits, labels, cfg: ExperimentConfig, aux: Tuple = ()) -> Tuple[torch.Tensor, Metrics]:
+def _seg_loss(logits, labels, cfg: ExperimentConfig, aux: Tuple = (), mesh=None) -> Tuple[torch.Tensor, Metrics]:
     loss_cfg = cfg.loss
-    ce = cross_entropy_with_ignore(logits, labels, loss_cfg.ignore_index)
+    ce = cross_entropy_with_ignore(logits, labels, loss_cfg.ignore_index, mesh=mesh)
     total, parts = ce, {"loss_ce": ce}
     if loss_cfg.aux_weight and any(a is not None for a in aux):
-        aux_ce = sum(cross_entropy_with_ignore(a, labels, loss_cfg.ignore_index)
+        aux_ce = sum(cross_entropy_with_ignore(a, labels, loss_cfg.ignore_index, mesh=mesh)
                      for a in aux if a is not None)
         total = total + loss_cfg.aux_weight * aux_ce
         parts["loss_aux"] = aux_ce
@@ -151,16 +164,26 @@ def _seg_loss(logits, labels, cfg: ExperimentConfig, aux: Tuple = ()) -> Tuple[t
         probas = torch.softmax(logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=1)
         if loss_cfg.lovasz_impl == "binned":
             lov = lovasz_softmax_binned(probas, labels, loss_cfg.ignore_index,
-                                        bins=loss_cfg.lovasz_bins, interp=loss_cfg.lovasz_interp)
+                                        bins=loss_cfg.lovasz_bins, interp=loss_cfg.lovasz_interp, mesh=mesh)
         else:
-            lov = lovasz_softmax(probas, labels, loss_cfg.ignore_index)
+            lov = lovasz_softmax(probas, labels, loss_cfg.ignore_index, mesh=mesh)
         total = total + loss_cfg.lovasz_weight * lov
         parts["loss_lovasz"] = lov
     return total, parts
 
 
+def _global_losses(metrics: Metrics, mesh) -> Metrics:
+    """The losses' global values: the ranks' shares summed, in one
+    ``all_reduce`` (the identity at world 1)."""
+    keys = [k for k in metrics if k.startswith("loss")]
+    if mesh is None or mesh.world == 1 or not keys:
+        return metrics
+    summed = mesh.sum_(torch.stack([metrics[k].detach().to(torch.float64) for k in keys]))
+    return {**metrics, **{k: summed[i].to(metrics[k].dtype) for i, k in enumerate(keys)}}
+
+
 def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
-                    d_schedule: Optional[Callable[[int], float]] = None):
+                    d_schedule: Optional[Callable[[int], float]] = None, mesh=None):
     """``step(state, batch, generator) -> (state, metrics)``.
 
     ``batch`` holds uint8 NHWC ``image``, int32 NHW ``label`` and, in the
@@ -177,7 +200,8 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
     (``d_schedule``), ``grad_norm_d``, ``loss_seg`` and ``loss_adv_g``.
     With ``obs.watch_freq_steps > 0`` every step adds the JAX package's
     ``watch/g/<module>/{param,grad}_norm`` (and ``watch/d/...``), the
-    parameters' norms taken after the update.
+    parameters' norms taken after the update. With a ``mesh`` the batch is
+    this rank's rows of the global batch (see the module's docstring).
     """
     remat = cfg.train.remat
     adversarial = cfg.adversarial.enabled
@@ -193,13 +217,15 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
     watch = cfg.obs.watch_freq_steps > 0
 
     def source_step(state: TrainState, batch, generator) -> Tuple[TrainState, Metrics]:
-        images, labels = _prep_source(batch, generator, cfg)
+        images, labels = _prep_source(batch, generator, cfg, mesh)
         # NHWC -> NCHW view: channels_last memory, which the convs read as it is
         x = images.to(compute_dtype).permute(0, 3, 1, 2)
         logits, sup1, sup2 = _apply_train(state.model, x, use_aux, remat)
-        loss, parts = _seg_loss(logits, labels, cfg, aux=(sup1, sup2))
+        loss, parts = _seg_loss(logits, labels, cfg, aux=(sup1, sup2), mesh=mesh)
         state.model.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            mesh.reduce_grads(state.model)
         grad_norm = _grad_norm(state.model)
         _update(state.optimizer, state.schedule(state.step))
         metrics = {
@@ -211,10 +237,10 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
         if watch:
             metrics.update(_watch_norms(state.model, "g"))
         state.step += 1
-        return state, metrics
+        return state, _global_losses(metrics, mesh)
 
     def adversarial_step(state: TrainState, batch, generator) -> Tuple[TrainState, Metrics]:
-        images_s, labels_s = _prep_source(batch, generator, cfg)
+        images_s, labels_s = _prep_source(batch, generator, cfg, mesh)
         images_t = normalize_u8(batch["target_image"], cfg.augment,
                                 dtype=torch.promote_types(compute_dtype, torch.float32))
         g, d = state.model, state.discriminator
@@ -229,21 +255,25 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
         sm_s = _disc_input(pred_s.detach(), pool, compute_dtype)
         sm_t = sm_t_live.detach()
         d.zero_grad(set_to_none=True)
-        loss_d = 0.5 * (bce_with_logits(d(sm_s), REAL_LABEL) + bce_with_logits(d(sm_t), FAKE_LABEL))
+        loss_d = 0.5 * (bce_with_logits(d(sm_s), REAL_LABEL, mesh) + bce_with_logits(d(sm_t), FAKE_LABEL, mesh))
         loss_d.backward()
+        if mesh is not None:
+            mesh.reduce_grads(d)
         grad_norm_d = _grad_norm(d)
         _update(state.d_optimizer, state.d_schedule(state.step))
 
         # G through the updated D: D's parameters take no gradient
-        loss_seg, parts = _seg_loss(pred_s, labels_s, cfg, aux=(sup1, sup2))
+        loss_seg, parts = _seg_loss(pred_s, labels_s, cfg, aux=(sup1, sup2), mesh=mesh)
         d.requires_grad_(False)
         try:
-            loss_adv = bce_with_logits(d(sm_t_live), REAL_LABEL)
+            loss_adv = bce_with_logits(d(sm_t_live), REAL_LABEL, mesh)
         finally:
             d.requires_grad_(True)
         loss = loss_seg + cfg.adversarial.lambda_adv * loss_adv
         g.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            mesh.reduce_grads(g)
         grad_norm = _grad_norm(g)
         _update(state.optimizer, state.schedule(state.step))
         metrics = {
@@ -261,6 +291,6 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
             metrics.update(_watch_norms(g, "g"))
             metrics.update(_watch_norms(d, "d"))
         state.step += 1
-        return state, metrics
+        return state, _global_losses(metrics, mesh)
 
     return adversarial_step if adversarial else source_step

@@ -1,6 +1,7 @@
 """The port's train CLIs: the JAX package's flag surface (the same argv
-gives the same config, less the mesh), ``--device``, a training run on
-synthetic data, and predicting from the checkpoint it wrote."""
+gives the same config), ``--device``, the mesh flags against the process
+group's size, a training run on synthetic data, and predicting from the
+checkpoint it wrote."""
 
 import argparse
 import dataclasses
@@ -21,9 +22,8 @@ from rtda_semanticsegmentation_tpu_torch.cli.predict import main as predict_main
 
 from test_torch_loop import drop_tmp_path, torch_one_thread  # noqa: E402,F401  (autouse fixtures)
 
-# the JAX fields the port does not carry: the mesh (one device) and
-# fast_input (ROADMAP queue 1 item 9)
-NOT_PORTED = {("mesh",), ("model", "fast_input")}
+# the JAX field the port does not carry: fast_input (ROADMAP queue 1 item 5)
+NOT_PORTED = {("model", "fast_input")}
 
 
 def _parse(common, argv, adversarial):
@@ -68,7 +68,7 @@ def test_same_argv_same_config_as_jax(argv, adversarial):
     jcfg, _ = _parse(jcommon, argv, adversarial)
     port, ref = _flat(tcfg.to_dict()), _flat(jcfg.to_dict())
     missing = {k for k in ref if k not in port}
-    assert {k[:1] if k[0] == "mesh" else k for k in missing} == NOT_PORTED
+    assert missing == NOT_PORTED
     assert not [k for k in port if k not in ref]
     for k, v in port.items():
         assert v == ref[k], k
@@ -84,9 +84,22 @@ def test_defaults_and_presets_match_jax():
     assert dataclasses.asdict(tconfig.ObservabilityConfig()) == dataclasses.asdict(jconfig.ObservabilityConfig())
 
 
-def test_multi_device_mesh_raises():
-    for flag in (["--mesh_data", "2"], ["--mesh_model", "2"], ["--mesh_data", "8"]):
-        with pytest.raises(ValueError, match="queue 1 item 8"):
+@pytest.mark.parametrize("flag, world, error", [
+    (["--mesh_model", "2"], 1, "parallel/tp.py"),
+    (["--mesh_data", "2"], 1, "has 1 rank"),
+    (["--mesh_data", "2"], 2, None),
+    (["--mesh_data", "8"], 2, "has 2 rank"),
+])
+def test_multi_device_mesh_raises(flag, world, error, monkeypatch):
+    """``--mesh_data`` must equal the process group's size (a group of 2
+    mocked); ``--mesh_model`` above 1 raises, naming the unported
+    tensor-parallel module."""
+    monkeypatch.setattr(tcommon, "world_size", lambda: world)
+    if error is None:
+        cfg, _ = _parse(tcommon, flag, False)
+        assert (cfg.mesh.data, cfg.mesh.model) == (2, 1)
+    else:
+        with pytest.raises(ValueError, match=error):
             _parse(tcommon, flag, False)
 
 

@@ -138,6 +138,29 @@ def test_lovasz_hist_kernel_matches_plain_version(n, ignore_frac, ignore, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,n,launches", [(17, 2**20, 2), (1, 2**24 + 8, 2)])
+def test_lovasz_hist_above_max_pixels_is_the_same_bits(b, n, launches):
+    """More than 2**24 - 1 pixels: K1 cuts the call into launches (along B;
+    along N for one image), adds their integer histograms and finalizes
+    once: the same bits as its plain version; and the integer histograms of
+    two halves (two ranks' rows) add to the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(b)
+    p = torch.softmax(torch.randn((b, 19, n), generator=g, device="cuda") * 3.0, dim=1)
+    labels = torch.randint(0, 19, (b, n), generator=g, device="cuda", dtype=torch.int32)
+    labels[torch.rand((b, n), generator=g, device="cuda") < 0.1] = 255
+    before = klov.hist_launches
+    got = klov.lovasz_hist(p, labels, 256, 255)
+    assert klov.hist_launches == before + launches
+    assert torch.equal(got, klov.lovasz_hist_plain(p, labels, 256, 255))
+    half = n // 2
+    raw = klov.lovasz_hist_raw(p[:, :, :half].contiguous(), labels[:, :half].contiguous(), 256, 255) + \
+        klov.lovasz_hist_raw(p[:, :, half:].contiguous(), labels[:, half:].contiguous(), 256, 255)
+    assert torch.equal(klov.finalize_hist(raw), got)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("interp", [True, False])
 @pytest.mark.parametrize("n,ignore_frac,ignore,kind", LOVASZ_CASES)
 def test_lovasz_bwd_kernel_matches_plain_version(interp, n, ignore_frac, ignore, kind):

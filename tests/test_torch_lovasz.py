@@ -10,7 +10,8 @@ Tolerances, each with its reason:
 
 - K1 (``lovasz_hist_plain``): count and fg rows exact (integers); the
   error-sum row adds the same bf16-rounded errors in f32 in another order:
-  rtol 1e-5, atol 1e-5.
+  rtol 1e-5, atol 1e-5. K1's integer histograms of the pieces of a call,
+  added and finalized: the same bits as one call.
 - K2 (``lovasz_bwd_plain``): exact. Both pick one bf16-rounded table entry
   per pixel and flip its sign for foreground; nothing is summed.
 - binned loss: rtol 1e-6 (the error sums above enter the loss); its
@@ -165,6 +166,94 @@ def test_hist_plan_raises_above_its_pixel_limit():
         klov.hist_plan(16, C, 2**20 + 4, 256, 132)
     with pytest.raises(ValueError, match="at most 16384 bins"):
         klov.hist_plan(1, C, 64, 32768, 132)
+
+
+def test_hist_chunks_cut_a_call_above_max_pixels(monkeypatch):
+    """Calls above ``MAX_PIXELS``: whole images spread evenly over the
+    fewest launches, or one image cut along N into pieces of a multiple of
+    4 pixels; every pixel in exactly one launch of at most the limit."""
+    assert klov.hist_chunks(8, 720 * 1280) == [(0, 8, 0, 720 * 1280)]
+    assert klov.hist_chunks(32, 512 * 1024) == [(0, 16, 0, 512 * 1024), (16, 32, 0, 512 * 1024)]
+    assert klov.hist_chunks(19, 720 * 1280) == [(0, 10, 0, 921600), (10, 19, 0, 921600)]
+    monkeypatch.setattr(klov, "MAX_PIXELS", 1000)
+    for b, n in ((8, 300), (7, 1000), (3, 2500), (1, 4001), (2, 1001)):
+        chunks = klov.hist_chunks(b, n)
+        covered = np.zeros((b, n), np.int64)
+        for b0, b1, n0, n1 in chunks:
+            assert (b1 - b0) * (n1 - n0) <= 1000
+            assert n0 % 4 == 0 and (n1 == n or (n1 - n0) % 4 == 0)
+            covered[b0:b1, n0:n1] += 1
+        assert (covered == 1).all(), (b, n)
+    assert klov.hist_chunks(8, 300) == [(0, 3, 0, 300), (3, 6, 0, 300), (6, 8, 0, 300)]
+    assert klov.hist_chunks(1, 2500) == [(0, 1, 0, 836), (0, 1, 836, 1672), (0, 1, 1672, 2500)]
+
+
+def _fake_launch(launched):
+    """K1's launch on the CPU: its plan (which raises above the per-launch
+    limit) and its workspace, the u64 sums of the plain integer histogram
+    laid out as the kernel leaves them (``count | fg << 32``, then the error
+    sums, wrapping as u64 in int64)."""
+
+    def launch(p, lab, bins, ignore, out):
+        b, c, n = klov._check(p, lab, bins)
+        klov.hist_plan(b, c, n, bins, 132)
+        launched.append((b, n))
+        raw = klov.lovasz_hist_raw_plain(p, lab, bins, ignore).reshape(klov.RAW_ROWS, -1)
+        err = raw[2] + (raw[3] << 32)
+        return torch.cat([raw[0] | raw[1] << 32, err, torch.zeros(1, dtype=torch.int64)])
+
+    return launch
+
+
+@pytest.mark.parametrize("b,n", [(6, 1000), (1, 6000)])
+def test_hist_above_max_pixels_adds_its_launches_exactly(b, n, monkeypatch):
+    """A call of more than ``MAX_PIXELS`` pixels (the limit patched small)
+    no longer raises: the card's path cuts it into launches (along B, or
+    along N for one image), adds their integer sums in int64 limbs and
+    finalizes once: the same bits as the plain version of the whole call."""
+    rng = np.random.RandomState(b)
+    logits = rng.randn(b, C, n).astype(np.float32) * 3.0
+    p = np.exp(logits - logits.max(1, keepdims=True))
+    p = torch.from_numpy((p / p.sum(1, keepdims=True)).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, C, (b, n)).astype(np.int32))
+    labels[torch.from_numpy(rng.rand(b, n) < 0.1)] = 255
+    want = klov.lovasz_hist_plain(p, labels, BINS, 255)
+    monkeypatch.setattr(klov, "MAX_PIXELS", 2500)
+    launched = []
+    monkeypatch.setattr(klov, "_launch_hist", _fake_launch(launched))
+    monkeypatch.setattr(klov, "_device_check", lambda probas, what: False)  # take the card's path
+    got = klov.lovasz_hist(p, labels, BINS, 255)
+    assert len(launched) == len(klov.hist_chunks(b, n)) > 1 and all(x * y <= 2500 for x, y in launched)
+    assert torch.equal(got, want)
+
+
+def test_raw_histograms_add_to_the_whole():
+    """Integer histograms of any cut of the pixels add to the whole's: the
+    finalized sum of two halves is the same bits as one call (the sum the
+    ranks of a data-parallel step all-reduce)."""
+    p, labels = _case(9)
+    tp, tl = torch.from_numpy(p), torch.from_numpy(labels)
+    whole = klov.lovasz_hist_plain(tp, tl, BINS, 255)
+    raw = klov.lovasz_hist_raw(tp[:1].contiguous(), tl[:1].contiguous(), BINS, 255) + klov.lovasz_hist_raw(
+        tp[1:].contiguous(), tl[1:].contiguous(), BINS, 255)
+    assert torch.equal(klov.finalize_hist(raw), whole)
+    cut = tp.shape[2] // 3
+    raw = klov.lovasz_hist_raw(tp[:, :, :cut].contiguous(), tl[:, :cut].contiguous(), BINS, 255) + \
+        klov.lovasz_hist_raw(tp[:, :, cut:].contiguous(), tl[:, cut:].contiguous(), BINS, 255)
+    assert torch.equal(klov.finalize_hist(raw), whole)
+
+
+def test_finalize_rounds_the_exact_total_once():
+    """A total above 2**64 (several launches' sums) and one below, split
+    into limbs however: one rounding to f64, then to f32, as the kernel's
+    ``float(double(u64) * 2**-40)``."""
+    totals = [2**64 + 2**40 + 12345, 3 * 2**40 + 1, 2**70 + 2**17 + 1, 0]
+    raw = torch.zeros((klov.RAW_ROWS, 1, len(totals)), dtype=torch.int64)
+    for i, t in enumerate(totals):
+        raw[2, 0, i] = (t & (2**32 - 1)) + 2**33  # an unnormalized low limb
+        raw[3, 0, i] = (t >> 32) - 2
+    got = klov.finalize_hist(raw)[0, 2].tolist()
+    assert got == [float(np.float32(float(t) * 2.0**-40)) for t in totals]
 
 
 def _nchw(p, labels):

@@ -195,6 +195,9 @@ PORT_ENTRY_MODULES = (
     "rtda_semanticsegmentation_tpu_torch.obs.logging",
     "rtda_semanticsegmentation_tpu_torch.obs.profiler",
     "rtda_semanticsegmentation_tpu_torch.obs.summary",
+    "rtda_semanticsegmentation_tpu_torch.parallel",
+    "rtda_semanticsegmentation_tpu_torch.parallel.mesh",
+    "rtda_semanticsegmentation_tpu_torch.parallel.multihost",
     "rtda_semanticsegmentation_tpu_torch.cli.common",
     "rtda_semanticsegmentation_tpu_torch.cli.train",
     "rtda_semanticsegmentation_tpu_torch.cli.train_adversarial",
@@ -211,6 +214,24 @@ PORT_ENTRY_MODULES = (
 )
 
 
+# one rank of a 2-rank run of cli/train on the CPU: it exits non-zero if it
+# loaded anything of JAX
+RANK_CODE = (
+    "import sys\n"
+    "from rtda_semanticsegmentation_tpu_torch.cli import train\n"
+    "report = train.main(['--preset', 'bisenet_source_small', '--train_dataset', 'synthetic',\n"
+    "    '--val_dataset', 'synthetic', '--train_size', '32', '32', '--eval_size', '32', '32',\n"
+    "    '--batch_size', '4', '--eval_batch_size', '4', '--epochs', '1', '--steps_per_epoch', '2',\n"
+    "    '--compute_dtype', 'float32', '--num_workers', '1', '--device', 'cpu', '--no_perf',\n"
+    "    '--log_backend', 'jsonl', '--log_dir', 'ROOT/dp_logs', '--checkpoint_dir', 'ROOT/dp_ckpt',\n"
+    "    '--run_name', 'dp'])\n"
+    "assert report['global_step'] == 2 and report['trainer'].mesh.world == 2, report['global_step']\n"
+    "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+    "       ('jax', 'jaxlib', 'flax', 'optax', 'rtda_semanticsegmentation_tpu')]\n"
+    "sys.exit(f'a rank loads {bad[:5]}' if bad else 0)\n"
+)
+
+
 def test_port_imports_no_jax(tmp_path):
     """After each import of the port's modules and scripts, after the
     adversarial train step and its fused discriminator are built, after
@@ -221,7 +242,8 @@ def test_port_imports_no_jax(tmp_path):
     the report), after an export through ``cli/export`` and its load, a
     run of the converter CLI, and a native decode through the decoded-sample
     cache, no jax, jaxlib, flax or optax module and nothing of the JAX
-    package is loaded."""
+    package is loaded; nor in either rank of a 2-rank (gloo) run of
+    ``cli/train`` on the CPU, which trains 2 steps over both ranks."""
     code = (
         "import importlib, sys\n"
         "def check(what):\n"
@@ -296,6 +318,17 @@ def test_port_imports_no_jax(tmp_path):
         "DecodedCacheDataset(ds, root + '/cache').load(0)\n"
         "assert native.available()\n"
         "check('the native decode and the cache')\n"
+        "import socket, subprocess\n"
+        "with socket.socket() as s:\n"
+        "    s.bind(('localhost', 0))\n"
+        "    port = s.getsockname()[1]\n"
+        f"rank_code = {RANK_CODE!r}.replace('ROOT', root)\n"
+        "env = dict(os.environ, MASTER_ADDR='localhost', MASTER_PORT=str(port), WORLD_SIZE='2', OMP_NUM_THREADS='1')\n"
+        "procs = [subprocess.Popen([sys.executable, '-c', rank_code], env={**env, 'RANK': str(r), 'LOCAL_RANK': str(r)},\n"
+        "                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in (0, 1)]\n"
+        "outs = [p.communicate(timeout=200)[0] for p in procs]\n"
+        "if any(p.returncode for p in procs):\n"
+        "    sys.exit('a 2-rank run failed: ' + ' | '.join(o[-2000:] for o in outs))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
