@@ -177,10 +177,28 @@ failure:
    step at b32 512x1024 (2**24 pixels): 2 K1 launches and 1 K2 per step,
    finite loss; prints its ms/step and peak memory.
 
+14. tp (run after phase 13): tensor parallelism (``parallel/tp.py``) with
+   gloo ranks sharing cuda:0 (``--worker tp``): (a) 2 ranks at (data=1,
+   model=2), (b) 4 ranks at (data=2, model=2), each running the flagship
+   step at full shapes (b8, source 720x1280, target 512x1024) with the
+   train loop's rule (convs of >= 256 output channels sharded: 13 of G, 2
+   of D). The gate: one step in f32 (TF32 off) against the single-process
+   step with whole convs, within phase 13b's tolerances. Then the bf16
+   steps: their first step's difference to the single-process bf16 step is
+   printed, not gated, beside the single-process step's own difference
+   under another choice of cuDNN algorithms (``cudnn.benchmark``): a
+   sharded conv runs cuDNN kernels of other shapes, which round other
+   bf16 sums; K1 and K2 launch once per step and rank; the replicated
+   parameters are the same bits in every model group (the BatchNorm
+   running statistics' spread is printed). Prints each layout's ms/step
+   beside the single-process step's and the weights + optimizer state a
+   rank holds against one process's. K1's and K2's counts in the kernels
+   line add rank 0's launches.
+
 The last two lines are a JSON summary of the kernels and the result line.
-``python3 chip_smoke.py --only distributed`` runs phases 1, 2 and 13 alone
-(a quicker check of the distributed path); ``--worker`` is the form phase
-13 starts its ranks with.
+``python3 chip_smoke.py --only distributed`` runs phases 1, 2, 13 and 14
+alone (a quicker check of the distributed path), ``--only tp`` phases 1, 2
+and 14; ``--worker`` is the form phases 13 and 14 start their ranks with.
 """
 
 from __future__ import annotations
@@ -1946,6 +1964,172 @@ def phase_distributed(card: str) -> dict:
     return {"lovasz_hist": got["lovasz_hist"], "lovasz_bwd": got["lovasz_bwd"]}
 
 
+TP_MIN_CHANNELS = 256  # the train loop's rule: convs of >= 256 output channels shard
+TP_STEPS = 2  # timed steps after the checked one
+TP_LAYOUTS = ((2, 2), (4, 2))  # (ranks, model): (data=1, model=2), (data=2, model=2)
+
+
+def _state_bytes(state) -> int:
+    """Bytes of the parameters and optimizer state this rank holds (G and D)."""
+    total = 0
+    for module, opt in ((state.model, state.optimizer), (state.discriminator, state.d_optimizer)):
+        total += sum(p.numel() * p.element_size() for p in module.parameters())
+        total += sum(v.numel() * v.element_size() for st in opt.state.values() for v in st.values()
+                     if torch.is_tensor(v))
+    return total
+
+
+def _tp_flagship(mesh=None, dtype: str = "bfloat16", timed: int = TP_STEPS) -> dict:
+    """The flagship step at full shapes from its seeded init, computing in
+    ``dtype`` (the rows of ``mesh``'s data index, its wide kernels sharded;
+    all of it without a mesh): the first step's metrics and K1/K2
+    launches, then the ms/step of ``timed`` more on the device's timeline,
+    the state's bytes and the state."""
+    from rtda_semanticsegmentation_tpu_torch.models.layers import sync_batch_norm
+    from rtda_semanticsegmentation_tpu_torch.parallel import shard_state
+
+    cfg = get_preset("bisenet_adversarial_lovasz")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype=dtype))
+    state, _ = _train_setup(cfg, DEV)
+    batch = _adversarial_batch(cfg.train.batch_size, SOURCE_HW, TARGET_HW, 31, DEV)
+    if mesh is not None:
+        sync_batch_norm(state.model, mesh)
+        shard_state(state, mesh, TP_MIN_CHANNELS)
+        local = mesh.check_batch(cfg.train.batch_size)
+        batch = {k: v[mesh.data_rank * local:(mesh.data_rank + 1) * local].contiguous() for k, v in batch.items()}
+    step = make_train_step(cfg, state.schedule, state.d_schedule, mesh=mesh)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    klov.hist_launches = klov.bwd_launches = 0
+    _, m = step(state, batch, gen)
+    metrics = {k: float(v) for k, v in m.items()}
+    if mesh is not None:
+        mesh.barrier()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(timed):
+        step(state, batch, gen)
+    end.record()
+    torch.cuda.synchronize()
+    return {"metrics": metrics, "launches": (klov.hist_launches, klov.bwd_launches),
+            "ms": start.elapsed_time(end) / max(timed, 1), "bytes": _state_bytes(state), "state": state}
+
+
+def _model_group_spread(mesh, tensors) -> float:
+    """The largest difference of ``tensors`` between the ranks of this
+    rank's model group, and the largest over the world of that: 0 when
+    every model group holds the same bits."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
+    hi, lo = flat.clone(), flat.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.model_group)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.model_group)
+    spread = (hi - lo).abs().max().reshape(1)
+    dist.all_reduce(spread, op=dist.ReduceOp.MAX)
+    return spread.item()
+
+
+def worker_tp(out: str, model: int) -> None:
+    """A rank of phase 14a/b: gloo on cuda:0 at (data = world / model,
+    model), the flagship step sharded (``_tp_flagship``), first one step in
+    f32 (TF32 off), then the bf16 steps; then, over the ranks, the spread
+    of the replicated parameters and of the BatchNorm running statistics
+    within each model group and every rank's K1/K2 launches of the bf16
+    steps. Rank 0 writes them to ``out``."""
+    import torch.distributed as dist
+
+    from rtda_semanticsegmentation_tpu_torch.config import MeshConfig
+    from rtda_semanticsegmentation_tpu_torch.parallel import create_mesh, ensure_distributed, tp
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ensure_distributed(device=DEV, backend="gloo")
+    mesh = create_mesh(MeshConfig(model=model), device=DEV)
+    f32 = _tp_flagship(mesh, "float32", timed=0)["metrics"]
+    torch.cuda.empty_cache()
+    got = _tp_flagship(mesh)
+    state = got["state"]
+    replicated, stats = [], []
+    for module in (state.model, state.discriminator):
+        skip = tp.sharded_ids(module)
+        replicated += [p for p in module.parameters() if id(p) not in skip]
+        stats += [b for b in module.buffers() if b.is_floating_point()]
+    spread = (_model_group_spread(mesh, replicated), _model_group_spread(mesh, stats))
+    launches = torch.zeros(mesh.world, 2, dtype=torch.int64, device=DEV)
+    launches[mesh.rank] = torch.tensor(got["launches"], device=DEV)
+    dist.all_reduce(launches)
+    if mesh.is_main:
+        torch.save({"metrics": got["metrics"], "f32": f32, "ms": got["ms"], "bytes": got["bytes"], "spread": spread,
+                    "launches": launches.cpu().tolist(), "layout": (mesh.data_size, mesh.model_size),
+                    "backend": dist.get_backend(),
+                    "sharded": (len(tp.sharded_convs(state.model)), len(tp.sharded_convs(state.discriminator)))},
+                   out)
+    dist.destroy_process_group()
+
+
+def phase_tp(card: str) -> dict:
+    """Phase 14; returns K1's and K2's launches on its main path (rank 0 of
+    14a and 14b)."""
+    os.makedirs(DIST_DIR, exist_ok=True)
+    torch.cuda.empty_cache()
+    one_f32 = _tp_flagship(dtype="float32", timed=0)["metrics"]
+    torch.cuda.empty_cache()
+    one = _tp_flagship()
+    one_ms, one_bytes = one["ms"], one["bytes"]
+    whole = one["metrics"]
+    del one
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = True  # other algorithms than the heuristics' for the same convs
+    try:
+        again = _tp_flagship(timed=0)["metrics"]
+    finally:
+        torch.backends.cudnn.benchmark = False
+    torch.cuda.empty_cache()
+    # the gate, phase 13b's tolerances: the TP step against one process with
+    # whole convs, in f32 (TF32 off). In bf16 a sharded conv runs cuDNN
+    # kernels of other shapes than the whole conv, which round other bf16
+    # sums: that difference is printed beside the single-process step's
+    # under another choice of cuDNN algorithms
+    tols = {"loss": 1e-4, "loss_ce": 1e-4, "loss_lovasz": 1e-4, "loss_d": 1e-4, "loss_adv_g": 1e-4,
+            "grad_norm": 1e-2, "grad_norm_d": 1e-2}
+    print("tp: bf16, the single-process step with cuDNN's benchmarked algorithms against its heuristic ones: "
+          + ", ".join(f"{k} rel {_rel(again[k], whole[k]):.1e}" for k in tols) + f"; {card}")
+    counts = {"lovasz_hist": 0, "lovasz_bwd": 0}
+    for ranks, model in TP_LAYOUTS:
+        out = os.path.join(DIST_DIR, f"tp{ranks}.pt")
+        t0 = time.perf_counter()
+        _torchrun(ranks, "--worker", "tp", out, str(model))
+        got = torch.load(out, weights_only=False)
+        errs = {k: _rel(got["f32"][k], one_f32[k]) for k in tols}
+        what = f"tp ({'a' if ranks == 2 else 'b'}): {ranks} gloo ranks on cuda:0 at (data={got['layout'][0]}, model=" \
+               f"{got['layout'][1]})"
+        print(f"{what}, {time.perf_counter() - t0:.1f} s with the process starts; f32 (TF32 off) against one process: "
+              + ", ".join(f"{k} {got['f32'][k]:.6f} vs {one_f32[k]:.6f} (rel {errs[k]:.1e})" for k in tols))
+        print(f"{what}; bf16 against one process (not gated): "
+              + ", ".join(f"{k} {got['metrics'][k]:.6f} vs {whole[k]:.6f} (rel {_rel(got['metrics'][k], whole[k]):.1e})"
+                          for k in tols))
+        print(f"{what}: {got['sharded'][0]} G and {got['sharded'][1]} D convs sharded (>= {TP_MIN_CHANNELS} "
+              f"output channels); launches (K1, K2) per rank over {1 + TP_STEPS} steps {got['launches']}; "
+              f"replicated parameters' spread in a model group {got['spread'][0]!r}, BatchNorm statistics' "
+              f"{got['spread'][1]!r}; {got['ms']:.3f} ms/step against the single-process step's {one_ms:.3f}; "
+              f"weights + optimizer state {got['bytes'] / 2**20:.2f} MiB a rank against {one_bytes / 2**20:.2f} "
+              f"MiB in one process; {card}")
+        if got["backend"] != "gloo" or tuple(got["layout"]) != (ranks // model, model):
+            raise AssertionError(f"{what}: backend {got['backend']}, layout {got['layout']}")
+        if any(errs[k] > tol for k, tol in tols.items()):
+            raise AssertionError(f"{what}: the tensor-parallel step disagrees with the single-process step")
+        if any(tuple(c) != (1 + TP_STEPS, 1 + TP_STEPS) for c in got["launches"]):
+            raise AssertionError(f"{what}: expected one K1 and one K2 launch per step and rank, got {got['launches']}")
+        if got["spread"][0] != 0.0 or got["sharded"] != (13, 2):
+            raise AssertionError(f"{what}: replicated parameters differ in a model group ({got['spread'][0]}) "
+                                 f"or sharded convs {got['sharded']} are not (13, 2)")
+        counts["lovasz_hist"] += got["launches"][0][0]
+        counts["lovasz_bwd"] += got["launches"][0][1]
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _k3_entry(times: list) -> dict:
     """K3's kernels-line numbers: the sums of the per-forward times of the
     three int8 models."""
@@ -1958,16 +2142,21 @@ def _k3_entry(times: list) -> dict:
 def main() -> None:
     if sys.argv[1:2] == ["--worker"]:
         kind, out = sys.argv[2], sys.argv[3]
+        if kind == "tp":
+            return worker_tp(out, int(sys.argv[4]))
         return worker_cli(out, sys.argv[4:]) if kind == "cli" else worker_dp(out)
+    if sys.argv[1:] not in ([], ["--only", "distributed"], ["--only", "tp"]):
+        raise SystemExit(f"unknown arguments {sys.argv[1:]}: none, --only distributed or --only tp")
     t0 = time.perf_counter()
     card = phase_device()
     phase_build()
-    if sys.argv[1:] == ["--only", "distributed"]:
-        phase_distributed(card)
-        print(f"chip_smoke.py: the distributed phase passed in {time.perf_counter() - t0:.1f} s")
-        return
     if sys.argv[1:]:
-        raise SystemExit(f"unknown arguments {sys.argv[1:]}: none, or --only distributed")
+        if sys.argv[2] == "distributed":
+            phase_distributed(card)
+        phase_tp(card)
+        print(f"chip_smoke.py: the {sys.argv[2]} phase{'s' if sys.argv[2] == 'distributed' else ''} passed in "
+              f"{time.perf_counter() - t0:.1f} s")
+        return
     k3_times = phase_kernels()
     lovasz_times = phase_lovasz_kernels()
     conv4_times = phase_conv4_kernels()
@@ -1985,7 +2174,8 @@ def main() -> None:
     k3_launches += phase_loop(isolated_ms)
     k3_launches += phase_deeplab_loop()
     dist_launches = phase_distributed(card)
-    train_launches = {k: v + dist_launches[k] for k, v in train_launches.items()}
+    tp_launches = phase_tp(card)
+    train_launches = {k: v + dist_launches[k] + tp_launches[k] for k, v in train_launches.items()}
     k3_entry = _k3_entry([k3_times, r101_k3_times["r101"], r101_k3_times["deeplabv2"]])
     pkg = "rtda_semanticsegmentation_tpu_torch/csrc"
     ref = "rtda_semanticsegmentation_tpu/ops"

@@ -3,12 +3,13 @@ ExperimentConfig (the JAX package's ``cli/common.py`` flag surface, plus
 ``--device``).
 
 Every override produces a new frozen config via ``dataclasses.replace``.
-Data parallelism: launch one process per card with ``python -m
+Data and tensor parallelism: launch one process per card with ``python -m
 torch.distributed.run --nproc_per_node N -m <this CLI> ...``;
 :func:`process_group` joins the launcher's group (NCCL on cards, gloo with
-``--device cpu``) and ``--mesh_data`` (-1, the default, or N) must match
-its size. ``--mesh_model`` above 1 raises: tensor parallelism is not
-ported.
+``--device cpu``). ``--mesh_model M`` shards the wide conv kernels over
+groups of M ranks (``parallel/tp.py``); ``--mesh_data`` (-1, the default,
+or N / M) times M must be the group's size N, or the flags raise, naming
+both sizes.
 """
 
 from __future__ import annotations
@@ -97,11 +98,13 @@ def add_common_flags(p: argparse.ArgumentParser, adversarial: bool) -> None:
                    help="Mirror saved checkpoints to the W&B run "
                         "(reference wandb.save policy='live').")
     p.add_argument("--mesh_data", type=int,
-                   help="Data-parallel ranks, one device each: -1 (all the "
-                        "launcher's processes) or their number.")
+                   help="Data-parallel axis size, one device a rank: -1 (the "
+                        "launcher's processes not claimed by --mesh_model) or "
+                        "their number over --mesh_model.")
     p.add_argument("--mesh_model", type=int,
-                   help="Model-parallel axis size: 1 (tensor parallelism is "
-                        "not ported).")
+                   help="Model-parallel axis size: the wide conv kernels' "
+                        "output channels are sharded over groups of this "
+                        "many ranks (default 1).")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="Where to run: cuda needs a CUDA device and raises "
                         "without one.")

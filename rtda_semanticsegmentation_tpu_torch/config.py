@@ -7,10 +7,10 @@ copy so that it, and ``chip_smoke.py`` on a GPU machine, import nothing of
 the JAX package. The port's functions read these configs by attribute, so
 the JAX package's own config objects work as well.
 
-``MeshConfig`` is the JAX package's: ``data`` spans the ranks of a
-``torch.distributed`` process group, one device each
-(``parallel/mesh.py``); a ``model`` axis above 1 is not ported.
-``ModelConfig.fast_input`` is not carried.
+``MeshConfig`` is the JAX package's: ``data x model`` spans the ranks of
+a ``torch.distributed`` process group, one device each; the batch is split
+over ``data`` and the wide conv kernels' output channels over ``model``
+(``parallel/mesh.py``, ``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +26,11 @@ class ModelConfig:
     context_path: str = "resnet18"  # resnet18 | resnet101 (BiSeNet's)
     num_classes: int = 19
     compute_dtype: str = "bfloat16"
+    # the JAX package's phase-conv RGB stems, an exact rearrangement of the
+    # plain conv for the TPU. Carried for config parity: the port's plain
+    # stems compute the same function at either value (the phase form
+    # measured slower on the H100, PERF.md)
+    fast_input: bool = False
     # int8 PTQ serving: convs with >= quant_min_ch input channels whose flax
     # path contains no quant_skip substring run on the s8 kernel
     quant: str = "none"  # none | calib | int8 | int8_frozen
@@ -160,10 +165,10 @@ class LossConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The data-parallel layout (the JAX package's ``MeshConfig``): ``data``
-    ranks, one device each, the global batch split over them; -1 takes
-    every rank of the process group. ``model`` is the JAX package's
-    tensor-parallel axis, 1 here."""
+    """The (data, model) layout (the JAX package's ``MeshConfig``): ``data
+    x model`` ranks, one device each. The global batch is split over
+    ``data`` (-1: every rank not claimed by ``model``); the output channels
+    of the wide conv kernels over ``model`` (``parallel/tp.py``)."""
 
     data: int = -1
     model: int = 1

@@ -34,7 +34,9 @@ def build_model(cfg: ModelConfig, device="cuda", train: bool = False,
     field, as ``fused_conv1`` is one of :func:`build_discriminator`, because
     the JAX package has no such field. Load weights with
     :func:`load_variables`, then fold them into K4's operands with
-    ``layers.fold_kernel_operands``."""
+    ``layers.fold_kernel_operands``. ``cfg.fast_input`` builds the same
+    model: the JAX package's phase-conv stems compute the plain stems'
+    function."""
     if cfg.name not in ("bisenet", "deeplabv2"):
         raise ValueError(f"unknown model {cfg.name!r}; options: bisenet, deeplabv2")
     if cfg.quant not in ("none", "calib", "int8", "int8_frozen"):

@@ -68,9 +68,20 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
         self.stride, self.padding, self.dilation = stride, padding, dilation
         self.dtype, self.init = dtype, init
+        # tensor parallel (parallel/tp.py::shard_state): this rank's slice of
+        # the output channels, a parallel.tp.ChannelShard; None: the whole kernel
+        self.shard = None
 
     def forward(self, x):
         dt = self.dtype
+        s = self.shard
+        if s is not None:
+            # input copy -> the conv on this rank's slice -> gather over
+            # channels -> the bias on the full channels
+            y = F.conv2d(s.mesh.input_copy(x.to(dt)), self.weight.to(dt), None, self.stride, self.padding,
+                         self.dilation)
+            y = s.mesh.gather_channels(y, s.lo, s.full)
+            return y if self.bias is None else y + self.bias.to(dt).view(1, -1, 1, 1)
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding, self.dilation)
 
@@ -195,10 +206,12 @@ class FoldableBatchNorm(nn.Module):
       batch only (n = B). Inside :func:`running_stats_held` the running
       statistics stay as they are.
     - Data parallel (``self.mesh``, a ``parallel.MeshContext`` of more than
-      one rank, set by :func:`sync_batch_norm`): the statistics of the
+      one data index, set by :func:`sync_batch_norm`): the statistics of the
       global batch, as JAX's SPMD BatchNorm computes them: one autograd sum
-      over the ranks of ``[Σx, Σx², n]`` in at least f32, ``n`` the global
-      count in the unbiased factor too.
+      over the data group of ``[Σx, Σx², n]`` in at least f32, ``n`` the
+      global count in the unbiased factor too. The ranks of a model group
+      hold the same rows and every channel (a sharded conv gathers its
+      output first), so they take no part in the sum.
     """
 
     def __init__(self, ch, eps=1e-5, momentum=0.9):
@@ -219,7 +232,7 @@ class FoldableBatchNorm(nn.Module):
         else:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             n = x.numel() // x.shape[1]
-            if self.mesh is not None and self.mesh.world > 1:
+            if self.mesh is not None and self.mesh.data_size > 1:
                 c = x.shape[1]
                 count = torch.full((1,), float(n), dtype=xf.dtype, device=x.device)
                 sums = self.mesh.sum(torch.cat([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)), count]))

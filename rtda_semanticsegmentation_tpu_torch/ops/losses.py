@@ -16,15 +16,17 @@ computes in at least f32.
   against a constant target.
 
 Data parallel: given a ``mesh`` (a ``parallel.MeshContext``) of more than
-one rank, each loss returns this rank's share of the global loss, the
-JAX package's loss over the sharded batch: the shares sum over the ranks
-to the global value, and their gradients, summed over the ranks, to the
+one data index, each loss returns this rank's share of the global loss, the
+JAX package's loss over the sharded batch: the shares sum over the data
+group to the global value, and their gradients, summed over it, to the
 global loss's gradient. CE ``mean`` divides by the global valid-pixel
 count, ``mean_per_image`` by the global image count; the binned Lovász
-loss sums K1's integer histograms over the ranks (the exact global
+loss sums K1's integer histograms over the data group (the exact global
 histogram) and K2 runs on the local pixels with the global tables; the
 exact-sort Lovász gathers the global probabilities; the BCE scales the
-local mean by the rank's share of the batch.
+local mean by the rank's share of the batch. The ranks of one model group
+(tensor parallel) hold the same rows and compute the same share: every sum
+here runs over the data group, never over the world.
 """
 
 from __future__ import annotations
@@ -35,8 +37,9 @@ import torch.nn.functional as F
 from ..kernels import lovasz as klov
 
 
-def _world(mesh) -> int:
-    return 1 if mesh is None else mesh.world
+def _shares(mesh) -> int:
+    """The data indices the global batch is split over (1 without a mesh)."""
+    return 1 if mesh is None else mesh.data_size
 
 
 def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -59,13 +62,13 @@ def cross_entropy_with_ignore(logits, labels, ignore_index: int = 255, reduction
         return pixel
     if reduction == "mean":
         count = valid.sum()
-        if _world(mesh) > 1:
+        if _shares(mesh) > 1:
             count = mesh.sum_(count)
         return pixel.sum() / count.clamp_min(1)
     if reduction == "mean_per_image":
         b = pixel.shape[0]
         per_img = pixel.reshape(b, -1).sum(1) / valid.reshape(b, -1).sum(1).clamp_min(1)
-        return per_img.mean() if _world(mesh) == 1 else per_img.sum() / (b * mesh.world)
+        return per_img.mean() if _shares(mesh) == 1 else per_img.sum() / (b * mesh.data_size)
     raise ValueError(f"unknown reduction {reduction!r}")
 
 
@@ -83,9 +86,9 @@ def _class_rows(probas, labels, ignore_index):
 
 def _gathered(x: torch.Tensor, mesh) -> torch.Tensor:
     """The global batch of a rank-local ``x``: each rank's rows written
-    into a zero-filled global buffer and summed over the ranks (gloo has no
-    ``all_gather`` of CUDA tensors); the sum carries the gradient back to
-    each rank's rows."""
+    into a zero-filled global buffer and summed over the data group (gloo
+    has no ``all_gather`` of CUDA tensors); the sum carries the gradient
+    back to each rank's rows."""
     lo, total = mesh.rows(x.shape[0])
     rest = tuple(x.shape[1:])
     full = torch.cat([x.new_zeros((lo,) + rest), x, x.new_zeros((total - lo - x.shape[0],) + rest)])
@@ -100,9 +103,9 @@ def lovasz_softmax(probas, labels, ignore_index=255, classes: str = "present", m
     gathered global batch, this rank's share of it."""
     if classes not in ("present", "all"):
         raise ValueError(f"classes must be 'present' or 'all', got {classes!r}")
-    if _world(mesh) > 1:
+    if _shares(mesh) > 1:
         loss = lovasz_softmax(_gathered(probas, mesh), _gathered(labels, mesh), ignore_index, classes)
-        return loss / mesh.world
+        return loss / mesh.data_size
     p, labels, valid = _class_rows(probas, labels, ignore_index)
     c = p.shape[0]
     validf = valid.to(p.dtype)
@@ -185,28 +188,36 @@ def _binned_lovasz_forward(hists, classes: str, interp: bool):
     return loss, coef_desc.flip(1) * present[:, None], present_cnt
 
 
+def lovasz_histograms(p, labels, bins: int, ignore: int, mesh=None) -> torch.Tensor:
+    """K1's (C, 3, bins) histograms of the global batch from this rank's
+    (B, C, N) f32 probabilities and (B, N) int32 labels: with a ``mesh`` of
+    several data indices the integer sums added over the data group and
+    finalized once, otherwise one call."""
+    if _shares(mesh) > 1:
+        return klov.finalize_hist(mesh.sum_(klov.lovasz_hist_raw(p, labels, bins, ignore)))
+    return klov.lovasz_hist(p, labels, bins, ignore)
+
+
 class LovaszSoftmaxBinned(torch.autograd.Function):
     """Forward: K1 histograms + post-processing. Backward: the cotangent and
     ``1 / present_cnt`` fold into the tables, then K2. Gradient for the
     probabilities only.
 
-    With a ``mesh`` of several ranks the histograms are K1's integer sums
-    added over the ranks and finalized once, the exact global histogram, so
-    every rank holds the same loss L and tables. The forward returns the
-    share L / world; the backward gives the local pixels their gradient of
-    L, so that the ranks' gradients sum to the global one."""
+    With a ``mesh`` of several data indices the histograms are K1's integer
+    sums added over the data group and finalized once, the exact global
+    histogram, so every rank holds the same loss L and tables. The forward
+    returns the share L / data_size; the backward gives the local pixels
+    their gradient of L, so that the data group's gradients sum to the
+    global one."""
 
     @staticmethod
     def forward(ctx, probas, labels, ignore_index, classes, bins, interp, mesh=None):
         p, lab, ignore = _kernel_operands(probas, labels, ignore_index)
-        if _world(mesh) > 1:
-            hists = klov.finalize_hist(mesh.sum_(klov.lovasz_hist_raw(p, lab, bins, ignore)))
-        else:
-            hists = klov.lovasz_hist(p, lab, bins, ignore)
+        hists = lovasz_histograms(p, lab, bins, ignore, mesh)
         loss, tables, present_cnt = _binned_lovasz_forward(hists, classes, interp)
         ctx.save_for_backward(p, lab, tables, present_cnt)
         ctx.meta = (probas.shape, probas.dtype, ignore, bins, interp)
-        return loss / _world(mesh) if _world(mesh) > 1 else loss
+        return loss / _shares(mesh) if _shares(mesh) > 1 else loss
 
     @staticmethod
     def backward(ctx, g):
@@ -238,4 +249,4 @@ def bce_with_logits(logits: torch.Tensor, targets, mesh=None) -> torch.Tensor:
     z = torch.as_tensor(targets, dtype=x.dtype, device=x.device)
     loss = torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device)) - x * z
     mean = (loss + torch.log1p(torch.exp(-x.abs()))).mean()
-    return mean if _world(mesh) == 1 else mean / mesh.world
+    return mean if _shares(mesh) == 1 else mean / mesh.data_size

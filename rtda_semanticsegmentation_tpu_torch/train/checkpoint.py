@@ -16,7 +16,12 @@ Saves are synchronous: :meth:`CheckpointManager.wait` has nothing to wait
 for. A restore maps the tensors onto the run's device. Data parallel (a
 ``mesh``): the ranks hold the same state, so rank 0 writes and every rank
 waits at a barrier until the file is in place; each rank restores onto its
-own device.
+own device. Tensor parallel (``parallel/tp.py``): every rank first gathers
+the sharded kernels and their moments whole (``tp.gather_state``), so rank
+0 writes the full tensors and the file is the one a single process
+writes; a restore gives each rank its slices (``tp.load_state``). A
+checkpoint moves between layouts, and serves, unchanged. The BatchNorm
+running statistics are rank 0's.
 """
 
 from __future__ import annotations
@@ -29,26 +34,22 @@ import torch
 
 from ..config import ExperimentConfig
 from ..models.factory import eval_variables
+from ..parallel import tp
 from .state import TrainState
 
 FILENAME = "checkpoint.pt"
 
 
 def _state_tree(state: TrainState, epoch: int, per_class_ious=None, host_batches_per_epoch: int = 0) -> dict:
-    tree = {
+    return {
         "epoch": int(epoch),
         "step": int(state.step),
         "best_miou": float(state.best_miou),
         "host_batches_per_epoch": int(host_batches_per_epoch),
         "per_class_ious": None if per_class_ious is None else torch.as_tensor(
             np.asarray(per_class_ious, np.float64)),
-        "generator": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        **tp.gather_state(state),
     }
-    if state.discriminator is not None:
-        tree["discriminator"] = state.discriminator.state_dict()
-        tree["d_optimizer"] = state.d_optimizer.state_dict()
-    return tree
 
 
 class CheckpointManager:
@@ -139,11 +140,7 @@ class CheckpointManager:
         if state.discriminator is not None and "discriminator" not in tree:
             raise ValueError("adversarial resume needs an adversarial checkpoint; the restored "
                              "checkpoint has no discriminator state")
-        state.model.load_state_dict(tree["generator"])
-        state.optimizer.load_state_dict(tree["optimizer"])
-        if state.discriminator is not None:
-            state.discriminator.load_state_dict(tree["discriminator"])
-            state.d_optimizer.load_state_dict(tree["d_optimizer"])
+        tp.load_state(state, tree)
         state.step = int(tree["step"])
         state.best_miou = float(tree["best_miou"])
         ious = tree.get("per_class_ious")

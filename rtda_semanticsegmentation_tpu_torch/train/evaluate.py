@@ -7,9 +7,10 @@ number of valid images, all on the device. :func:`evaluate` adds them up on
 the device, brings them to the host once, and computes the IoUs there in
 f64. The histogram is int64 from the start (``ops/metrics.py``), so no
 flush to the host is needed before a cell could overflow. Data parallel
-(a ``mesh``): each rank evaluates its slice of every batch
-(``data/loader.py::eval_batches``) and the ranks' histograms, loss sums
-and image counts are summed before the IoUs.
+(a ``mesh``): each data index evaluates its slice of every batch
+(``data/loader.py::eval_batches``) and the data group's histograms, loss
+sums and image counts are summed before the IoUs; the ranks of a model
+group (tensor parallel) evaluate the same slice together.
 """
 
 from __future__ import annotations
@@ -80,7 +81,7 @@ def evaluate(eval_step: Callable, variables, batches: Iterable, num_classes: int
         else:
             hist, loss_sum, count = hist + h, loss_sum + ls, count + c
         n += 1
-    if hist is not None and mesh is not None and mesh.world > 1:
+    if hist is not None and mesh is not None and mesh.data_size > 1:
         hist = mesh.sum_(hist)
         loss_sum, count = mesh.sum_(torch.stack([loss_sum, count]).to(torch.float64))
     if hist is None:

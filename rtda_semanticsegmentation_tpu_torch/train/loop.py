@@ -22,12 +22,19 @@ first wait comes before any event of the epoch); the eval time per batch
 and each checkpoint save's seconds.
 
 Data parallel (``cfg.mesh`` over a ``torch.distributed`` process group,
-``parallel/``): each rank loads its rows of every global batch, trains
-with the global BatchNorm statistics, losses and gradients, evaluates its
-slice of the validation set into the global confusion matrix, and agrees on
-a SIGTERM every ``PREEMPT_SYNC_EVERY`` steps. Rank 0 alone prints, logs,
-writes checkpoints (the others wait at a barrier), traces and makes the
-final report's latency, FLOPs and int8 evaluation.
+``parallel/``): each data index loads its rows of every global batch,
+trains with the global BatchNorm statistics, losses and gradients,
+evaluates its slice of the validation set into the global confusion
+matrix, and the ranks agree on a SIGTERM every ``PREEMPT_SYNC_EVERY``
+steps. Tensor parallel (``cfg.mesh.model`` > 1): after the state is built
+its conv kernels of at least ``TP_MIN_CHANNELS`` output channels are
+sharded over each model group (``parallel/tp.py::shard_state``), as the
+JAX loop shards its state; a restore keeps that layout (each rank loads
+its slices), and the ranks of a model group load the same rows. Rank 0
+alone prints, logs, writes checkpoints (the others wait at a barrier; the
+sharded kernels are gathered first), traces and makes the final report's
+latency, FLOPs and int8 evaluation, on a whole copy of G when it is
+sharded (:meth:`Trainer.full_model`).
 """
 
 from __future__ import annotations
@@ -59,7 +66,7 @@ from ..models.factory import (
 from ..models.layers import fold_kernel_operands, sync_batch_norm
 from ..obs import make_logger, performance_metrics
 from ..ops.augment import normalize_u8
-from ..parallel import create_mesh, sync_any_flag
+from ..parallel import create_mesh, shard_state, sync_any_flag, tp
 from .checkpoint import CheckpointManager
 from .evaluate import apply_model, evaluate, make_eval_step
 from .optim import build_discriminator_tx, build_generator_tx
@@ -70,6 +77,7 @@ from .steps import make_train_step
 AUG_SEED_OFFSET = 17  # the augmentation stream's seed is train.seed + 17, as in JAX
 TRACE_SKIP = 3  # warm steps before a profile_steps trace starts
 PREEMPT_SYNC_EVERY = 16  # steps between the ranks' agreements on a SIGTERM, as in JAX
+TP_MIN_CHANNELS = 256  # the narrowest conv sharded over the model axis, as in JAX's loop
 _MASK64 = (1 << 64) - 1
 
 
@@ -130,7 +138,7 @@ class Trainer:
         workers = cfg.data.resolved_num_workers()
         self.mesh.check_batch(t.batch_size)
         self.mesh.check_batch(cfg.data.eval_batch_size, "eval batch")
-        shard = {"process_index": self.mesh.rank, "process_count": self.mesh.world}
+        shard = {"process_index": self.mesh.data_rank, "process_count": self.mesh.data_size}
 
         # --- data ---
         self.train_ds = build_dataset(cfg.data.train_dataset, "train", cfg.train_size, cfg.data)
@@ -199,6 +207,7 @@ class Trainer:
             self.state.discriminator = self.disc
             self.state.d_optimizer = build_discriminator_tx(cfg.adversarial, self.disc)
             self.state.d_schedule = d_sched
+        shard_state(self.state, self.mesh, TP_MIN_CHANNELS)
         self.train_step = make_train_step(cfg, g_sched, d_sched, mesh=self.mesh)
         self.eval_step = make_eval_step(cfg)
         # an explicit run name gets its own checkpoint directory
@@ -236,8 +245,8 @@ class Trainer:
         depth = self.cfg.data.prefetch_batches
         mesh = None if alone else self.mesh
         batches = eval_batches(self.val_ds, self.cfg.data.eval_batch_size, self.cfg.data.resolved_num_workers(),
-                               process_index=0 if alone else self.mesh.rank,
-                               process_count=1 if alone else self.mesh.world)
+                               process_index=0 if alone else self.mesh.data_rank,
+                               process_count=1 if alone else self.mesh.data_size)
         batches = prefetch_to_device(lookahead(batches, depth), self.device, depth)
         t0 = time.perf_counter()
         out = evaluate(eval_step or self.eval_step, self.model if variables is None else variables, batches,
@@ -245,12 +254,28 @@ class Trainer:
         self.timings["eval_ms_per_batch"].append((time.perf_counter() - t0) * 1e3 / max(out["batches"], 1))
         return out
 
+    def full_model(self) -> Optional[torch.nn.Module]:
+        """G with every kernel whole, on rank 0: the model itself, or, when
+        it is sharded, a copy made from the gathered state. Every rank calls
+        it (the gather is a collective over the model group); the others
+        get None."""
+        if not tp.sharded_convs(self.model):
+            return self.model if self.mesh.is_main else None
+        sd = tp.full_state_dict(self.model)
+        if not self.mesh.is_main:
+            return None
+        full = build_model(self.cfg.model, self.device, train=True)
+        full.load_state_dict(sd)
+        return full
+
     @torch.no_grad()
-    def predict(self, images_u8: np.ndarray) -> np.ndarray:
-        """trainId predictions of the current G for uint8 NHWC frames."""
+    def predict(self, images_u8: np.ndarray, model=None) -> np.ndarray:
+        """trainId predictions of the current G (or ``model``) for uint8 NHWC
+        frames; a sharded G runs its collectives, so every rank of its model
+        group calls this together (rank 0 alone passes :meth:`full_model`'s)."""
         x = normalize_u8(torch.from_numpy(images_u8).to(self.device), self.cfg.augment)
         x = x.to(getattr(torch, self.cfg.model.compute_dtype)).permute(0, 3, 1, 2)
-        return torch.argmax(apply_model(self.model, x), dim=1).cpu().numpy()
+        return torch.argmax(apply_model(self.model if model is None else model, x), dim=1).cpu().numpy()
 
     def save(self, stream: str, *args) -> None:
         """``ckpt.save_best`` / ``save_periodic``, timed."""
@@ -438,7 +463,7 @@ def run_experiment(cfg: ExperimentConfig, run_name: Optional[str] = None, measur
     model = cfg.model.name if cfg.model.name == "deeplabv2" else f"{cfg.model.name}/{cfg.model.context_path}"
     backend = torch.distributed.get_backend() if mesh.grouped else "none"
     say(f"mode={cfg.train_mode} model={model} device={trainer.device} backend={backend} world={mesh.world} "
-        f"steps/epoch={trainer.steps_per_epoch} max_iter={trainer.max_iter}")
+        f"mesh={mesh.data_size}x{mesh.model_size} steps/epoch={trainer.steps_per_epoch} max_iter={trainer.max_iter}")
 
     # --- optional trace of a few warm steps, on rank 0 ---
     trace_dir = None
@@ -548,13 +573,16 @@ def run_experiment(cfg: ExperimentConfig, run_name: Optional[str] = None, measur
                 logger.log_validation(val["miou"], val["loss"], val["per_class_iou"], state.step)
                 say(f"  val mIoU={val['miou']:.4f} loss={val['loss']:.4f} ({int(val['num_images'])} images)")
                 # a mask overlay of the first val sample every log_images_freq_epoch
-                if (epoch + 1) % t.log_images_freq_epoch == 0 and len(trainer.val_ds) and mesh.is_main:
+                if (epoch + 1) % t.log_images_freq_epoch == 0 and len(trainer.val_ds):
+                    whole = trainer.full_model()  # on every rank: a collective when G is sharded
                     try:
-                        img_u8, label = trainer.val_ds.load(0)
-                        pred = trainer.predict(img_u8[None])[0]
-                        logger.log_segmentation_images(img_u8, label, pred, state.step)
+                        if mesh.is_main:
+                            img_u8, label = trainer.val_ds.load(0)
+                            pred = trainer.predict(img_u8[None], whole)[0]
+                            logger.log_segmentation_images(img_u8, label, pred, state.step)
                     except Exception as e:  # image logging is best-effort, as the reference's
                         say(f"validation image logging skipped: {e!r}")
+                    del whole
                 if val["miou"] > float(state.best_miou):
                     state.best_miou = float(val["miou"])
                     best_per_class = val["per_class_iou"]
@@ -592,9 +620,10 @@ def run_experiment(cfg: ExperimentConfig, run_name: Optional[str] = None, measur
     compute_dtype = getattr(torch, cfg.model.compute_dtype)
     perf_h, perf_w = cfg.eval_size
     measure_performance = measure_performance and mesh.is_main
+    whole = trainer.full_model()  # on every rank: a collective when G is sharded
     if measure_performance:
         # at the eval resolution, batch 1, as the reference measures
-        report.update(performance_metrics(trainer.model, height=perf_h, width=perf_w, iterations=t.latency_iterations,
+        report.update(performance_metrics(whole, height=perf_h, width=perf_w, iterations=t.latency_iterations,
                                           warmup=t.warmup_iterations, dtype=compute_dtype))
 
     if t.final_int8_eval and mesh.is_main:
@@ -608,7 +637,7 @@ def run_experiment(cfg: ExperimentConfig, run_name: Optional[str] = None, measur
             calib.append(normalize_u8(torch.from_numpy(images).to(trainer.device), cfg.augment))
             if len(calib) >= 2:
                 break
-        q_vars = freeze(cfg.model, calibrate(cfg.model, eval_variables(trainer.model.state_dict()), calib,
+        q_vars = freeze(cfg.model, calibrate(cfg.model, eval_variables(whole.state_dict()), calib,
                                              device=trainer.device))
         q_model = quantized_model(cfg.model, frozen=True, device=trainer.device)
         load_variables(q_model, q_vars)
@@ -629,7 +658,7 @@ def run_experiment(cfg: ExperimentConfig, run_name: Optional[str] = None, measur
         try:  # the per-module table is best-effort, as the reference's
             from ..obs import flop_count_table
 
-            table = flop_count_table(trainer.model, (1, 3, perf_h, perf_w), depth=3, dtype=compute_dtype)
+            table = flop_count_table(whole, (1, 3, perf_h, perf_w), depth=3, dtype=compute_dtype)
             say(table)
             report["flop_table"] = table
         except Exception as e:
@@ -641,7 +670,7 @@ def run_experiment(cfg: ExperimentConfig, run_name: Optional[str] = None, measur
     try:
         for i in range(min(6, len(trainer.val_ds)) if mesh.is_main else 0):
             img_u8, label = trainer.val_ds.load(i)
-            pred = trainer.predict(img_u8[None])[0]
+            pred = trainer.predict(img_u8[None], whole)[0]
             logger.log_segmentation_images(img_u8, label, pred, final_step, tag=f"best/prediction_{i}")
     except Exception as e:
         say(f"prediction gallery skipped: {e!r}")

@@ -25,17 +25,22 @@ instead of keeping them. The recompute holds the BatchNorm running
 statistics (``models/layers.py::running_stats_held``), so they move once a
 forward, as in JAX, whose checkpoint is functional.
 
-Data parallel (a ``mesh``, ``parallel.MeshContext``): each rank holds its
-rows of the global batch. The augmentation draws are the global batch's,
-cut to the rank's rows; the BatchNorm statistics are the global batch's
-(``models/layers.py::sync_batch_norm``, which the caller applies); each
-loss is the rank's share of the global loss (``ops/losses.py``); after each
-backward one coalesced ``all_reduce`` per model sums the gradients. Not
+Data parallel (a ``mesh``, ``parallel.MeshContext``): each rank holds the
+rows of its data index of the global batch. The augmentation draws are the
+global batch's, cut to those rows; the BatchNorm statistics are the global
+batch's (``models/layers.py::sync_batch_norm``, which the caller applies);
+each loss is the data index's share of the global loss
+(``ops/losses.py``); after each backward one coalesced ``all_reduce`` per
+model and kind sums the gradients (``MeshContext.reduce_grads``). Tensor
+parallel (``parallel/tp.py::shard_state``, model > 1): the ranks of a
+model group see the same rows and each holds its slice of the wide
+kernels; the gradient norms count the slices' squares summed over the
+model group, so every metric is the whole model's. Not
 ``DistributedDataParallel``: the adversarial step backpropagates G's loss
 through the updated D, whose gradients must be neither reduced nor
 applied, and DeepLabV2 has parameters outside its optimizer, on both of
 which DDP's reducer hooks misfire. The metrics are the global values: the
-shares summed over the ranks in one more ``all_reduce``.
+shares summed over the data group in one more ``all_reduce``.
 
 The step reads nothing back to the host, so it never waits for the device;
 its metrics are device tensors. It clears the gradients of the whole model
@@ -55,6 +60,7 @@ from ..config import ExperimentConfig
 from ..models.layers import running_stats_held
 from ..ops.augment import augment_batch, normalize_u8
 from ..ops.losses import bce_with_logits, cross_entropy_with_ignore, lovasz_softmax, lovasz_softmax_binned
+from ..parallel.tp import sharded_ids
 from .state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -105,32 +111,52 @@ def _disc_input(pred: torch.Tensor, pool: int, dtype: torch.dtype) -> torch.Tens
     return probs.to(dtype, memory_format=torch.contiguous_format)
 
 
-def _grad_norm(module: torch.nn.Module) -> torch.Tensor:
-    return torch.nn.utils.get_total_norm([p.grad for p in module.parameters() if p.grad is not None])
+def _norms(groups: Dict[str, list], mesh) -> Metrics:
+    """The L2 norm of each group of ``(tensor, sharded)`` pairs. Without a
+    sharded tensor, ``get_total_norm``; with them (tensor parallel: this
+    rank's slices), the squares of the replicated tensors plus those of the
+    slices summed over the model group, in f64, one ``all_reduce`` for all
+    the groups."""
+    if not any(sharded for ts in groups.values() for _, sharded in ts):
+        return {k: torch.nn.utils.get_total_norm([t for t, _ in ts]) for k, ts in groups.items()}
+    device = next(iter(groups.values()))[0][0].device
+    zero = torch.zeros((), dtype=torch.float64, device=device)
+    squares = [torch.stack([sum((t.detach().double().square().sum() for t, sh in ts if sh == kind), zero)
+                            for ts in groups.values()]) for kind in (False, True)]
+    total = (squares[0] + mesh.model_sum_(squares[1])).sqrt()
+    return {k: total[i].to(ts[0][0].dtype) for i, (k, ts) in enumerate(groups.items())}
 
 
-def _watch_norms(module: torch.nn.Module, tag: str) -> Metrics:
+def _grad_norm(module: torch.nn.Module, mesh=None) -> torch.Tensor:
+    shards = sharded_ids(module)
+    return _norms({"": [(p.grad, id(p) in shards) for p in module.parameters() if p.grad is not None]}, mesh)[""]
+
+
+def _watch_norms(module: torch.nn.Module, tag: str, mesh=None) -> Metrics:
     """Per-top-level-module L2 norms of the parameters and their gradients,
     ``watch/<tag>/<module>/param_norm`` and ``.../grad_norm``, as the JAX
     package's ``_watch_norms`` computes them. The port's modules carry the
     flax paths, so the first component of a parameter's name is the flax
     top-level module; batch statistics are buffers and take no part. A
     module without gradients (the aux heads at ``aux_weight == 0``) has a
-    zero gradient in JAX, so its ``grad_norm`` is 0."""
+    zero gradient in JAX, so its ``grad_norm`` is 0. Sharded kernels count
+    whole (their slices' squares summed over the model group)."""
+    shards = sharded_ids(module)
     params: Dict[str, list] = {}
     grads: Dict[str, list] = {}
     for name, p in module.named_parameters():
         top = name.split(".", 1)[0]
-        params.setdefault(top, []).append(p.detach())
+        params.setdefault(top, []).append((p.detach(), id(p) in shards))
         grads.setdefault(top, [])
         if p.grad is not None:
-            grads[top].append(p.grad)
+            grads[top].append((p.grad, id(p) in shards))
+    param_norms = _norms(params, mesh)
+    grad_norms = _norms({top: gs for top, gs in grads.items() if gs}, mesh)
     out: Metrics = {}
     for top, ps in params.items():
-        out[f"watch/{tag}/{top}/param_norm"] = torch.nn.utils.get_total_norm(ps)
-        out[f"watch/{tag}/{top}/grad_norm"] = (
-            torch.nn.utils.get_total_norm(grads[top]) if grads[top]
-            else torch.zeros((), device=ps[0].device, dtype=ps[0].dtype))
+        p = ps[0][0]
+        out[f"watch/{tag}/{top}/param_norm"] = param_norms[top]
+        out[f"watch/{tag}/{top}/grad_norm"] = grad_norms.get(top, torch.zeros((), device=p.device, dtype=p.dtype))
     return out
 
 
@@ -173,10 +199,10 @@ def _seg_loss(logits, labels, cfg: ExperimentConfig, aux: Tuple = (), mesh=None)
 
 
 def _global_losses(metrics: Metrics, mesh) -> Metrics:
-    """The losses' global values: the ranks' shares summed, in one
-    ``all_reduce`` (the identity at world 1)."""
+    """The losses' global values: the data group's shares summed, in one
+    ``all_reduce`` (the identity for one data index)."""
     keys = [k for k in metrics if k.startswith("loss")]
-    if mesh is None or mesh.world == 1 or not keys:
+    if mesh is None or mesh.data_size == 1 or not keys:
         return metrics
     summed = mesh.sum_(torch.stack([metrics[k].detach().to(torch.float64) for k in keys]))
     return {**metrics, **{k: summed[i].to(metrics[k].dtype) for i, k in enumerate(keys)}}
@@ -225,8 +251,8 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
         state.model.zero_grad(set_to_none=True)
         loss.backward()
         if mesh is not None:
-            mesh.reduce_grads(state.model)
-        grad_norm = _grad_norm(state.model)
+            mesh.reduce_grads(state.model, sharded_ids(state.model))
+        grad_norm = _grad_norm(state.model, mesh)
         _update(state.optimizer, state.schedule(state.step))
         metrics = {
             "loss": loss.detach(),
@@ -235,7 +261,7 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
             **{k: v.detach() for k, v in parts.items()},
         }
         if watch:
-            metrics.update(_watch_norms(state.model, "g"))
+            metrics.update(_watch_norms(state.model, "g", mesh))
         state.step += 1
         return state, _global_losses(metrics, mesh)
 
@@ -258,8 +284,8 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
         loss_d = 0.5 * (bce_with_logits(d(sm_s), REAL_LABEL, mesh) + bce_with_logits(d(sm_t), FAKE_LABEL, mesh))
         loss_d.backward()
         if mesh is not None:
-            mesh.reduce_grads(d)
-        grad_norm_d = _grad_norm(d)
+            mesh.reduce_grads(d, sharded_ids(d))
+        grad_norm_d = _grad_norm(d, mesh)
         _update(state.d_optimizer, state.d_schedule(state.step))
 
         # G through the updated D: D's parameters take no gradient
@@ -273,8 +299,8 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
         g.zero_grad(set_to_none=True)
         loss.backward()
         if mesh is not None:
-            mesh.reduce_grads(g)
-        grad_norm = _grad_norm(g)
+            mesh.reduce_grads(g, sharded_ids(g))
+        grad_norm = _grad_norm(g, mesh)
         _update(state.optimizer, state.schedule(state.step))
         metrics = {
             "loss": loss.detach(),
@@ -288,8 +314,8 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
             "loss_adv_g": loss_adv.detach(),
         }
         if watch:
-            metrics.update(_watch_norms(g, "g"))
-            metrics.update(_watch_norms(d, "d"))
+            metrics.update(_watch_norms(g, "g", mesh))
+            metrics.update(_watch_norms(d, "d", mesh))
         state.step += 1
         return state, _global_losses(metrics, mesh)
 

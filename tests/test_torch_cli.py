@@ -22,8 +22,9 @@ from rtda_semanticsegmentation_tpu_torch.cli.predict import main as predict_main
 
 from test_torch_loop import drop_tmp_path, torch_one_thread  # noqa: E402,F401  (autouse fixtures)
 
-# the JAX field the port does not carry: fast_input (ROADMAP queue 1 item 5)
-NOT_PORTED = {("model", "fast_input")}
+# the JAX fields the port does not carry: none (fast_input is carried; the
+# port's plain stems compute its function)
+NOT_PORTED = set()
 
 
 def _parse(common, argv, adversarial):
@@ -85,19 +86,24 @@ def test_defaults_and_presets_match_jax():
 
 
 @pytest.mark.parametrize("flag, world, error", [
-    (["--mesh_model", "2"], 1, "parallel/tp.py"),
+    (["--mesh_model", "2"], 1, "mesh.model=2 needs a multiple of 2 ranks .* has 1 rank"),
     (["--mesh_data", "2"], 1, "has 1 rank"),
     (["--mesh_data", "2"], 2, None),
     (["--mesh_data", "8"], 2, "has 2 rank"),
+    (["--mesh_model", "2"], 4, None),
+    (["--mesh_data", "2", "--mesh_model", "2"], 4, None),
+    (["--mesh_data", "2", "--mesh_model", "2"], 2, "mesh.data=2 but the process group has 2 rank.*mesh.model=2"),
+    (["--mesh_model", "3"], 4, "mesh.model=3 needs a multiple of 3 ranks .* has 4 rank"),
 ])
 def test_multi_device_mesh_raises(flag, world, error, monkeypatch):
-    """``--mesh_data`` must equal the process group's size (a group of 2
-    mocked); ``--mesh_model`` above 1 raises, naming the unported
-    tensor-parallel module."""
+    """``--mesh_data`` times ``--mesh_model`` must equal the process
+    group's size (a group of ``world`` mocked); a layout that does not fit
+    raises, naming both sizes."""
     monkeypatch.setattr(tcommon, "world_size", lambda: world)
     if error is None:
-        cfg, _ = _parse(tcommon, flag, False)
-        assert (cfg.mesh.data, cfg.mesh.model) == (2, 1)
+        cfg, args = _parse(tcommon, flag, False)
+        want = (args.mesh_data if args.mesh_data is not None else -1, args.mesh_model or 1)
+        assert (cfg.mesh.data, cfg.mesh.model) == want
     else:
         with pytest.raises(ValueError, match=error):
             _parse(tcommon, flag, False)

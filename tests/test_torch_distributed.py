@@ -36,6 +36,7 @@ Tolerances, each with its reason:
 
 import dataclasses
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -58,6 +59,7 @@ from rtda_semanticsegmentation_tpu.config import MeshConfig as JMeshConfig
 from rtda_semanticsegmentation_tpu.ops import losses as jlosses
 from rtda_semanticsegmentation_tpu.parallel import create_mesh as jcreate_mesh
 from rtda_semanticsegmentation_tpu.parallel import shard_batch
+from rtda_semanticsegmentation_tpu.parallel import shard_state as jshard_state
 from rtda_semanticsegmentation_tpu.train import steps as jsteps
 from rtda_semanticsegmentation_tpu.train.schedule import poly_lr_schedule as jpoly
 from rtda_semanticsegmentation_tpu.train.state import ModelState, TrainState as JTrainState
@@ -105,18 +107,21 @@ def _configs() -> dict:
 
 
 class Spawn:
-    """The two ranks, started at once and awaited on first use."""
+    """``world`` ranks of ``cmd`` (default: ``tests/torch_dist_worker.py
+    <root>``, 2 ranks), started at once and awaited on first use, within
+    ``SPAWN_TIMEOUT`` of the start; their logs are ``<root>/log.<tag>rank<r>``."""
 
-    def __init__(self, root):
-        self.root, self.done = str(root), False
+    def __init__(self, root, world: int = WORLD, cmd=None, tag: str = ""):
+        self.root, self.done, self.world, self.tag = str(root), False, world, tag
+        cmd = cmd or [os.path.join(REPO, "tests", "torch_dist_worker.py"), self.root]
         port = _free_port()
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-        env.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE=str(WORLD), OMP_NUM_THREADS="1")
+        env.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE=str(world), OMP_NUM_THREADS="1")
         self.procs = []
-        for r in range(WORLD):
-            log = open(os.path.join(self.root, f"log.rank{r}"), "w")
+        for r in range(world):
+            log = open(os.path.join(self.root, f"log.{tag}rank{r}"), "w")
             self.procs.append(subprocess.Popen(
-                [sys.executable, os.path.join(REPO, "tests", "torch_dist_worker.py"), self.root],
+                [sys.executable, *cmd],
                 env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, stdout=log, stderr=subprocess.STDOUT))
         self.deadline = time.monotonic() + SPAWN_TIMEOUT
 
@@ -127,13 +132,18 @@ class Spawn:
             for p in self.procs:
                 p.wait(timeout=max(0.0, self.deadline - time.monotonic()))
         except subprocess.TimeoutExpired:
-            for p in self.procs:
-                p.kill()
-                p.wait()
-            pytest.fail(f"the 2-rank run did not end within {SPAWN_TIMEOUT} s")
-        logs = [open(os.path.join(self.root, f"log.rank{r}")).read() for r in range(WORLD)]
+            self.kill()
+            pytest.fail(f"the {self.world}-rank run did not end within {SPAWN_TIMEOUT} s")
+        logs = [open(os.path.join(self.root, f"log.{self.tag}rank{r}")).read() for r in range(self.world)]
         assert all(p.returncode == 0 for p in self.procs), "\n".join(log[-3000:] for log in logs)
         self.done = True
+
+    def kill(self) -> None:
+        """End every rank still running."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
 
     def load(self, name: str, r: int):
         self.wait()
@@ -178,10 +188,8 @@ def setup(tmp_path_factory, x64_module):
     torch.save(inputs, os.path.join(root, "inputs.pt"))
     spawn = Spawn(root)
     yield {"gflat": gflat, "dflat": dflat, "configs": configs, "batches": batches, "inputs": inputs, "spawn": spawn}
-    for p in spawn.procs:  # a test that failed before waiting leaves nothing running
-        if p.poll() is None:
-            p.kill()
-            p.wait()
+    spawn.kill()  # a test that failed before waiting leaves nothing running
+    shutil.rmtree(root, ignore_errors=True)  # the ranks' f64 states, about 1 GB
 
 
 def _one_process(setup, name):
@@ -217,12 +225,13 @@ def test_two_ranks_match_one_process(setup, name):
     assert ranks[0]["metrics"] == ranks[1]["metrics"]
 
 
-def _jax_mesh_step(setup, name):
-    """JAX's step on a data=2 mesh of the virtual CPU devices, the Lovász
-    kernels in Pallas interpret mode."""
+def _jax_mesh_step(setup, name, data: int = WORLD, model: int = 1, min_channels: int = 256):
+    """JAX's step on a (data, model) mesh of the virtual CPU devices (a
+    data=2 mesh by default), the state placed by ``shard_state``, the
+    Lovász kernels in Pallas interpret mode."""
     jcfg, _ = setup["configs"][name]
     batch = setup["batches"][name]
-    ctx = jcreate_mesh(JMeshConfig(data=WORLD))
+    ctx = jcreate_mesh(JMeshConfig(data=data, model=model))
     gflat, dflat = setup["gflat"], setup["dflat"]
     if jcfg.adversarial.enabled:
         state = _jax_state(jcfg, gflat, dflat)
@@ -236,7 +245,7 @@ def _jax_mesh_step(setup, name):
     sharded = {k: shard_batch(ctx, batch[k]) for k in keys}
     jlosses.FORCE_PALLAS_INTERPRET = True
     try:
-        jstate, jm = jax.jit(step)(jax.device_put(state, ctx.replicated()), sharded, jax.random.PRNGKey(0))
+        jstate, jm = jax.jit(step)(jshard_state(state, ctx, min_channels), sharded, jax.random.PRNGKey(0))
     finally:
         jlosses.FORCE_PALLAS_INTERPRET = False
     return jstate, {k: float(v) for k, v in jm.items()}
@@ -245,7 +254,13 @@ def _jax_mesh_step(setup, name):
 @pytest.mark.parametrize("name", ["lovasz", "adv"])
 def test_two_ranks_match_jax_data2_mesh(setup, name):
     jstate, jm = _jax_mesh_step(setup, name)
-    got = setup["spawn"].load(name, 0)
+    assert_matches_jax_step(setup, name, setup["spawn"].load(name, 0), jstate, jm)
+
+
+def assert_matches_jax_step(setup, name, got, jstate, jm):
+    """The port's step (``got``: its metrics and whole G and D) against
+    JAX's (its state and metrics), at the tolerances of the module's
+    docstring."""
     tm = got["metrics"]
     assert tm.keys() == jm.keys()
     loose = {"lr", "lr_d", "loss", "loss_lovasz", "loss_seg"}
@@ -349,7 +364,7 @@ def test_mesh_checks_its_layout():
     assert parallel.check_mesh(MeshConfig(data=-1), 4) == 4
     with pytest.raises(ValueError, match="mesh.data=2 but the process group has 4"):
         parallel.check_mesh(MeshConfig(data=2), 4)
-    with pytest.raises(ValueError, match="parallel/tp.py"):
+    with pytest.raises(ValueError, match="mesh.model=2 needs a multiple of 2 ranks .* has 1 rank"):
         parallel.check_mesh(MeshConfig(model=2), 1)
     mesh = parallel.MeshContext(rank=1, world=2, device=torch.device("cpu"))
     assert mesh.check_batch(8) == 4 and mesh.rows(4) == (4, 8)

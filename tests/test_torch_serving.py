@@ -198,6 +198,7 @@ PORT_ENTRY_MODULES = (
     "rtda_semanticsegmentation_tpu_torch.parallel",
     "rtda_semanticsegmentation_tpu_torch.parallel.mesh",
     "rtda_semanticsegmentation_tpu_torch.parallel.multihost",
+    "rtda_semanticsegmentation_tpu_torch.parallel.tp",
     "rtda_semanticsegmentation_tpu_torch.cli.common",
     "rtda_semanticsegmentation_tpu_torch.cli.train",
     "rtda_semanticsegmentation_tpu_torch.cli.train_adversarial",
@@ -214,8 +215,8 @@ PORT_ENTRY_MODULES = (
 )
 
 
-# one rank of a 2-rank run of cli/train on the CPU: it exits non-zero if it
-# loaded anything of JAX
+# one rank of a 2-rank tensor-parallel run (--mesh_model 2) of cli/train on
+# the CPU: it exits non-zero if it loaded anything of JAX
 RANK_CODE = (
     "import sys\n"
     "from rtda_semanticsegmentation_tpu_torch.cli import train\n"
@@ -224,8 +225,9 @@ RANK_CODE = (
     "    '--batch_size', '4', '--eval_batch_size', '4', '--epochs', '1', '--steps_per_epoch', '2',\n"
     "    '--compute_dtype', 'float32', '--num_workers', '1', '--device', 'cpu', '--no_perf',\n"
     "    '--log_backend', 'jsonl', '--log_dir', 'ROOT/dp_logs', '--checkpoint_dir', 'ROOT/dp_ckpt',\n"
-    "    '--run_name', 'dp'])\n"
-    "assert report['global_step'] == 2 and report['trainer'].mesh.world == 2, report['global_step']\n"
+    "    '--run_name', 'dp', '--mesh_model', '2'])\n"
+    "mesh = report['trainer'].mesh\n"
+    "assert report['global_step'] == 2 and (mesh.world, mesh.model_size) == (2, 2), report['global_step']\n"
     "bad = [m for m in sys.modules if m.split('.')[0] in\n"
     "       ('jax', 'jaxlib', 'flax', 'optax', 'rtda_semanticsegmentation_tpu')]\n"
     "sys.exit(f'a rank loads {bad[:5]}' if bad else 0)\n"
@@ -243,7 +245,8 @@ def test_port_imports_no_jax(tmp_path):
     run of the converter CLI, and a native decode through the decoded-sample
     cache, no jax, jaxlib, flax or optax module and nothing of the JAX
     package is loaded; nor in either rank of a 2-rank (gloo) run of
-    ``cli/train`` on the CPU, which trains 2 steps over both ranks."""
+    ``cli/train --mesh_model 2`` on the CPU, which trains 2 steps with the
+    wide convs sharded over both ranks (``parallel/tp.py``)."""
     code = (
         "import importlib, sys\n"
         "def check(what):\n"
