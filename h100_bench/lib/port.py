@@ -1,0 +1,30 @@
+"""The system under test, configured from a configuration file.
+
+The file names one of the port's presets and, group by group, the values
+the cell runs with; they are written over the preset, so the port runs
+exactly what the file (and the reference, which reads the same file)
+says. The port is imported here, inside functions, after the harness has
+found a card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+PACKAGE = "rtda_semanticsegmentation_tpu_torch"
+GROUPS = ("model", "optimizer", "adversarial", "loss", "augment", "data")
+
+
+def _value(v):
+    return tuple(_value(x) for x in v) if isinstance(v, list) else v
+
+
+def experiment(config: dict):
+    from rtda_semanticsegmentation_tpu_torch.config import get_preset
+
+    exp = get_preset(config["preset"])
+    for group in GROUPS:
+        fields = {k: _value(v) for k, v in config.get(group, {}).items()}
+        if fields:
+            exp = exp.replace(**{group: dataclasses.replace(getattr(exp, group), **fields)})
+    return exp

@@ -1,0 +1,8 @@
+"""K1 (csrc/lovasz.cu histograms): its bytes at the HBM rate over its device
+time a launch, %."""
+
+from h100_bench.lib.readers import lovasz_roofline
+
+
+def read(run):
+    return lovasz_roofline(run, "k1")
