@@ -235,6 +235,7 @@ from rtda_semanticsegmentation_tpu_torch.models.factory import (
     load_variables,
 )
 from rtda_semanticsegmentation_tpu_torch.models.quantize import calibrate, freeze, quantized_model
+from rtda_semanticsegmentation_tpu_torch.obs import spans
 from rtda_semanticsegmentation_tpu_torch.ops.augment import normalize_u8
 from rtda_semanticsegmentation_tpu_torch.ops.losses import _binned_lovasz_forward, lovasz_softmax_binned
 from rtda_semanticsegmentation_tpu_torch.serving import (
@@ -305,6 +306,12 @@ K4_CONVS = {"r18": 14, "r101": 31, "deeplabv2": 33}
 R101_MODELS = (("BiSeNet-R101", "r101", dict(context_path="resnet101")),
                ("DeepLabV2", "deeplabv2", dict(name="deeplabv2")))
 R101_QUANT_CONVS = {"r101": 97, "deeplabv2": 95}
+
+
+def _zero_counters(*names: str) -> None:
+    """Set the kernel wrappers' counters (``obs/spans.py``) to 0."""
+    for name in names:
+        spans.set_counter(name, 0)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -659,7 +666,7 @@ def phase_conv4_kernels() -> dict:
     per_step = {"conv4x4s2p1": (1, 2), "conv4x4s2p1_dw": (1, 1), "conv4x4s2p1_dx": (0, 1)}
     out = {name: {"ms": 0.0, "stream_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                   "max_abs_err": 0.0, "by": {"bytes": 0.0, "operations": 0.0}} for name in per_step}
-    kc.copies = 0
+    _zero_counters("conv4x4.copies")
     for where, hw, seed in (("source", SOURCE_HW, 10), ("target", TARGET_HW, 11)):
         x = _softmax_map(hw, seed)
         h, wd = hw
@@ -894,7 +901,7 @@ def _k4_serving(what, cfg, variables, requests, convs: int) -> int:
     serve_k4 = make_serving_fn(cfg, aug, variables, "bf16", device=DEV, fused_conv3=True)
     masks = [serve(x) for x in requests]
     # the main path: K4's launches during the fused requests only
-    k4.launches = k4.copies = 0
+    _zero_counters("conv3x3.launches", "conv3x3.copies")
     masks_k4 = [serve_k4(x) for x in requests]
     torch.cuda.synchronize()
     launches = k4.launches
@@ -967,7 +974,7 @@ def phase_slice() -> tuple:
 
     masks_bf16 = [serve_bf16(x) for x in requests]
     # the main path: the kernel's launches during the int8 requests only
-    k3.launches = k3.copies = 0
+    _zero_counters("int8_conv.launches", "int8_conv.copies")
     masks_int8 = [serve_int8(x) for x in requests]
     torch.cuda.synchronize()
     launches = k3.launches
@@ -1041,7 +1048,7 @@ def _artifact_requests(what, fn, eager, requests, k3_per, k4_per, card) -> tuple
     launches."""
     masks_eager = [eager(x) for x in requests] + [eager(requests[0][:1])]
     # the main path: the kernels' launches during the artifact's requests only
-    k3.launches = k3.copies = k4.launches = k4.copies = 0
+    _zero_counters("int8_conv.launches", "int8_conv.copies", "conv3x3.launches", "conv3x3.copies")
     masks = [fn(x) for x in requests] + [fn(requests[0][:1])]
     torch.cuda.synchronize()
     n3, n4 = k3.launches, k4.launches
@@ -1197,7 +1204,7 @@ def phase_r101_int8() -> tuple:
         serve = make_serving_fn(cfg, aug, frozen, "int8", device=DEV)
         torch.cuda.reset_peak_memory_stats()
         # the main path: K3's launches during the int8 requests only
-        k3.launches = k3.copies = 0
+        _zero_counters("int8_conv.launches", "int8_conv.copies")
         masks = [serve(x) for x in requests]
         torch.cuda.synchronize()
         n, copies = k3.launches, k3.copies
@@ -1383,7 +1390,7 @@ def phase_train() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the main path: the kernels' launches during the train steps only
-    klov.hist_launches = klov.bwd_launches = 0
+    _zero_counters("lovasz.hist_launches", "lovasz.bwd_launches")
     metrics, ms = _timed_steps(state, step, batch, gen, TRAIN_STEPS)
     launches = {"lovasz_hist": klov.hist_launches, "lovasz_bwd": klov.bwd_launches}
     losses = [float(m["loss"]) for m in metrics]
@@ -1424,8 +1431,8 @@ def phase_adversarial() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the main path: the kernels' launches during the adversarial steps only
-    klov.hist_launches = klov.bwd_launches = 0
-    kc.fwd_launches = kc.dw_launches = kc.dx_launches = kc.copies = 0
+    _zero_counters("lovasz.hist_launches", "lovasz.bwd_launches")
+    _zero_counters("conv4x4.fwd_launches", "conv4x4.dw_launches", "conv4x4.dx_launches", "conv4x4.copies")
     metrics, ms = _timed_steps(state, step, batch, gen, TRAIN_STEPS)
     k5_copies = kc.copies
     launches = {"conv4x4s2p1": kc.fwd_launches, "conv4x4s2p1_dw": kc.dw_launches,
@@ -1588,8 +1595,8 @@ def _loop_run(argv, cli: str = "train_adversarial") -> tuple:
     import importlib
 
     main = importlib.import_module(f"rtda_semanticsegmentation_tpu_torch.cli.{cli}").main
-    klov.hist_launches = klov.bwd_launches = 0
-    k3.launches = k3.copies = 0
+    _zero_counters("lovasz.hist_launches", "lovasz.bwd_launches")
+    _zero_counters("int8_conv.launches", "int8_conv.copies")
     t0 = time.perf_counter()
     report = main(argv)
     torch.cuda.synchronize()
@@ -1810,7 +1817,7 @@ def worker_cli(out: str, argv: list) -> None:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    klov.hist_launches = klov.bwd_launches = 0
+    _zero_counters("lovasz.hist_launches", "lovasz.bwd_launches")
     report = train_adversarial.main(argv)
     torch.cuda.synchronize()
     trainer = report["trainer"]
@@ -1949,7 +1956,7 @@ def phase_distributed(card: str) -> dict:
     gen = torch.Generator(device=DEV).manual_seed(9)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    klov.hist_launches = klov.bwd_launches = 0
+    _zero_counters("lovasz.hist_launches", "lovasz.bwd_launches")
     metrics, ms = _timed_steps(state, step, batch, gen, WARMUP_STEPS + 1)
     launches = (klov.hist_launches, klov.bwd_launches)
     losses = [float(m["loss"]) for m in metrics]
@@ -1999,7 +2006,7 @@ def _tp_flagship(mesh=None, dtype: str = "bfloat16", timed: int = TP_STEPS) -> d
         batch = {k: v[mesh.data_rank * local:(mesh.data_rank + 1) * local].contiguous() for k, v in batch.items()}
     step = make_train_step(cfg, state.schedule, state.d_schedule, mesh=mesh)
     gen = torch.Generator(device=DEV).manual_seed(5)
-    klov.hist_launches = klov.bwd_launches = 0
+    _zero_counters("lovasz.hist_launches", "lovasz.bwd_launches")
     _, m = step(state, batch, gen)
     metrics = {k: float(v) for k, v in m.items()}
     if mesh is not None:

@@ -14,8 +14,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
+
+from ..obs.spans import setup_span
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
@@ -25,9 +26,9 @@ NVCC_FLAGS = (
 )
 
 # What the build of each loaded source printed (ptxas register and spill
-# report) and how long it took (0 when the library was already built; the
-# report is then read back from the log kept beside it), for chip_smoke.py
-# to show.
+# report) and how long it took, from its ``kernels.build`` span (0 when the
+# library was already built; the report is then read back from the log kept
+# beside it), for chip_smoke.py and the benchmark to show.
 build_log: dict = {}
 
 
@@ -43,27 +44,29 @@ def nvcc_path() -> str:
 
 
 def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``source`` (relative to the package) if needed and load it."""
-    src = PACKAGE_DIR / source
-    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"{src.stem}-{digest}.so"
-    log_path = lib_path.with_suffix(".log")
-    if lib_path.exists():
-        log = log_path.read_text() if log_path.exists() else ""
-        build_log[source] = {"seconds": 0.0, "log": log}
-    else:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
-        log = (proc.stdout + proc.stderr).strip()
-        log_path.write_text(log)
-        os.replace(tmp, lib_path)
-        build_log[source] = {"seconds": time.perf_counter() - t0, "log": log}
-    return ctypes.CDLL(str(lib_path))
+    """Compile ``source`` (relative to the package) if needed and load it,
+    in a ``kernels.build`` span (``obs/spans.py``)."""
+    with setup_span("kernels.build") as build:
+        src = PACKAGE_DIR / source
+        headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+        digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        lib_path = BUILD_DIR / f"{src.stem}-{digest}.so"
+        log_path = lib_path.with_suffix(".log")
+        built = not lib_path.exists()
+        if built:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                capture_output=True, text=True,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
+            log = (proc.stdout + proc.stderr).strip()
+            log_path.write_text(log)
+            os.replace(tmp, lib_path)
+        else:
+            log = log_path.read_text() if log_path.exists() else ""
+        library = ctypes.CDLL(str(lib_path))
+    build_log[source] = {"seconds": build.host_ms * 1e-3 if built else 0.0, "log": log}
+    return library

@@ -37,14 +37,16 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..obs.spans import count, module_counters
 from .build import load_library
 
 SOURCE = "csrc/conv3x3.cu"
 
-# Launches of the CUDA kernel in this process; the plain version never counts.
-launches = 0
-# Operand copies the wrapper made before a launch (launch_plan).
-copies = 0
+# Launches of the CUDA kernel in this process (the plain version never
+# counts) and the operand copies the wrapper made before a launch
+# (launch_plan), read as ``launches`` and ``copies``: counters ``conv3x3.*``
+# of ``obs/spans.py``.
+__getattr__ = module_counters("conv3x3", ("launches", "copies"))
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _lib = None
@@ -185,13 +187,12 @@ def _(x, w, scale, shift, relu, dilation, out_dtype):
     co = w.shape[3]
     n_tile, copy_x, copy_w = launch_plan(c, co, ldw, x.dtype, w.dtype,
                                          x.data_ptr() % 16 == 0, w.data_ptr() % 16 == 0)
-    global copies
     if copy_x:
         x = _padded_bf16(x, -(-c // 8) * 8)
     if copy_w:
         ldw = -(-co // 8) * 8
         w = _padded_bf16(w, ldw)
-    copies += int(copy_x) + int(copy_w)
+    count("conv3x3.copies", int(copy_x) + int(copy_w))
     out = torch.empty((bsz, h, wd, co), device=x.device, dtype=out_dtype)
     lib = _library()
     with torch.cuda.device(x.device):
@@ -205,8 +206,7 @@ def _(x, w, scale, shift, relu, dilation, out_dtype):
         )
     if err != 0:
         raise RuntimeError(f"conv3x3 launch failed: CUDA error {err}")
-    global launches
-    launches += 1
+    count("conv3x3.launches")
     return out
 
 

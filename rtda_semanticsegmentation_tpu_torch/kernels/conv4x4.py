@@ -34,17 +34,16 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..obs.spans import count, module_counters
 from .build import load_library
 
 SOURCE = "csrc/conv4x4s2.cu"
 
-# Launches of the CUDA kernels in this process; the plain versions never count.
-fwd_launches = 0
-dw_launches = 0
-dx_launches = 0
-
-# Operand copies the wrappers made around a launch (launch_plan).
-copies = 0
+# Launches of the CUDA kernels in this process, read as ``fwd_launches``,
+# ``dw_launches`` and ``dx_launches`` (the plain versions never count), and
+# the operand copies the wrappers made around a launch (launch_plan), read as
+# ``copies``: counters ``conv4x4.*`` of ``obs/spans.py``.
+__getattr__ = module_counters("conv4x4", ("fwd_launches", "dw_launches", "dx_launches", "copies"))
 
 _MAX_C = 20
 _MAX_CO = 64
@@ -183,9 +182,8 @@ def conv4x4s2p1(x, w, out_dtype=torch.bfloat16) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"conv4x4s2p1 launch failed: CUDA error {err}")
-    global fwd_launches, copies
-    fwd_launches += 1
-    copies += int(copy_x) + int(copy_y)
+    count("conv4x4.fwd_launches")
+    count("conv4x4.copies", int(copy_x) + int(copy_y))
     return y[..., :wo].contiguous() if copy_y else y
 
 
@@ -221,9 +219,8 @@ def conv4x4s2p1_dw(x, dy) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"conv4x4s2p1_dw launch failed: CUDA error {err}")
-    global dw_launches, copies
-    dw_launches += 1
-    copies += int(copy_x) + int(copy_dy)
+    count("conv4x4.dw_launches")
+    count("conv4x4.copies", int(copy_x) + int(copy_dy))
     return dw
 
 
@@ -255,9 +252,8 @@ def conv4x4s2p1_dx(dy, w, out_dtype=torch.bfloat16) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"conv4x4s2p1_dx launch failed: CUDA error {err}")
-    global dx_launches, copies
-    dx_launches += 1
-    copies += int(copy_dx) + int(copy_dy)
+    count("conv4x4.dx_launches")
+    count("conv4x4.copies", int(copy_dx) + int(copy_dy))
     return dx[..., :wd].contiguous() if copy_dx else dx
 
 

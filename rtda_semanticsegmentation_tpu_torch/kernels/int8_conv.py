@@ -35,15 +35,16 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..obs.spans import count, module_counters
 from .build import load_library
 
 SOURCE = "csrc/int8_conv.cu"
 
-# Launches of the CUDA kernel in this process; the plain version never counts.
-launches = 0
-# Operand copies the wrapper made before a launch: a padded xq (launch_plan)
-# or the K-major weights of a call that was not given them.
-copies = 0
+# Launches of the CUDA kernel in this process (the plain version never
+# counts) and the operand copies the wrapper made before a launch (a padded xq,
+# launch_plan, or the K-major weights of a call that was not given them), read
+# as ``launches`` and ``copies``: counters ``int8_conv.*`` of ``obs/spans.py``.
+__getattr__ = module_counters("int8_conv", ("launches", "copies"))
 
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1}
 _S8 = 2
@@ -243,10 +244,9 @@ def _launch(xq, wq, a, b, inv_out, kmajor, stride, padding, dilation, relu, out_
                          f"stride {stride}, padding {padding}, dilation {dilation}")
     c16 = -(-c // 16) * 16
     n_tile, copy_x = launch_plan(c, co, xq.data_ptr() % 16 == 0)
-    global copies
     if kmajor is None:
         kmajor = kmajor_weights(wq)
-        copies += 1
+        count("int8_conv.copies")
     wk, colsum = kmajor
     if (tuple(wk.shape) != (co, kh * kw, c16) or wk.dtype != torch.int8 or tuple(colsum.shape) != (kh * kw, co)
             or colsum.dtype != torch.int32 or not wk.is_contiguous() or not colsum.is_contiguous()
@@ -256,7 +256,7 @@ def _launch(xq, wq, a, b, inv_out, kmajor, stride, padding, dilation, relu, out_
         padded = torch.zeros((bsz, h, w, c16), device=xq.device, dtype=torch.int8)
         padded[..., :c] = xq
         xq = padded
-        copies += 1
+        count("int8_conv.copies")
     kind = _S8 if inv_out is not None else _OUT_KIND[out_dtype]
     out = torch.empty(
         (bsz, ho, wo, co), device=xq.device,
@@ -273,8 +273,7 @@ def _launch(xq, wq, a, b, inv_out, kmajor, stride, padding, dilation, relu, out_
         )
     if err != 0:
         raise RuntimeError(f"int8_conv launch failed: CUDA error {err}")
-    global launches
-    launches += 1
+    count("int8_conv.launches")
     return out
 
 

@@ -54,13 +54,15 @@ import ctypes
 
 import torch
 
+from ..obs.spans import count, module_counters
 from .build import load_library
 
 SOURCE = "csrc/lovasz.cu"
 
-# Launches of the CUDA kernels in this process; the plain versions never count.
-hist_launches = 0
-bwd_launches = 0
+# Launches of the CUDA kernels in this process, read as ``hist_launches`` and
+# ``bwd_launches`` (counters ``lovasz.*`` of ``obs/spans.py``); the plain
+# versions never count.
+__getattr__ = module_counters("lovasz", ("hist_launches", "bwd_launches"))
 
 _THREADS = 256
 _MAX_GROUP = 32  # classes of one block's group (csrc/lovasz.cu kMaxClasses)
@@ -271,8 +273,7 @@ def _launch_hist(probas, labels, bins: int, ignore: int, out) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"lovasz_hist launch failed: CUDA error {err}")
-    global hist_launches
-    hist_launches += 1
+    count("lovasz.hist_launches")
     return ws
 
 
@@ -344,8 +345,7 @@ def lovasz_bwd(probas, labels, table, bins: int, ignore: int, interp: bool) -> t
         )
     if err != 0:
         raise RuntimeError(f"lovasz_bwd launch failed: CUDA error {err}")
-    global bwd_launches
-    bwd_launches += 1
+    count("lovasz.bwd_launches")
     return out
 
 

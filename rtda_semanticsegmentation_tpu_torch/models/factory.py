@@ -3,7 +3,9 @@
 Port of the JAX ``models/factory.py``: BiSeNet (ResNet-18 or ResNet-101
 context path), DeepLabV2 and the FC-Discriminator. A model's "variables" in
 the port are its ``state_dict``; ``models/convert.py`` maps them to and from
-the JAX package's flat keys.
+the JAX package's flat keys. :func:`build_model`, :func:`build_discriminator`
+and :func:`load_variables` each run in a ``setup.build`` span
+(``obs/spans.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Dict, Mapping
 import torch
 
 from ..config import ModelConfig
+from ..obs.spans import setup_span
 from .bisenet import BiSeNet
 from .convert import QUANT_FROZEN, QUANT_STATS
 from .deeplabv2 import DeepLabV2
@@ -37,6 +40,11 @@ def build_model(cfg: ModelConfig, device="cuda", train: bool = False,
     ``layers.fold_kernel_operands``. ``cfg.fast_input`` builds the same
     model: the JAX package's phase-conv stems compute the plain stems'
     function."""
+    with setup_span("setup.build"):
+        return _build_model(cfg, device, train, fused_conv3)
+
+
+def _build_model(cfg: ModelConfig, device, train: bool, fused_conv3: bool) -> torch.nn.Module:
     if cfg.name not in ("bisenet", "deeplabv2"):
         raise ValueError(f"unknown model {cfg.name!r}; options: bisenet, deeplabv2")
     if cfg.quant not in ("none", "calib", "int8", "int8_frozen"):
@@ -81,8 +89,9 @@ def build_discriminator(cfg: ModelConfig, device="cuda", fused_conv1: bool = Fal
     wide, computing in ``compute_dtype``) on ``device``, with uninitialized
     parameters. ``fused_conv1`` is the JAX module's field of that name: the
     first conv on the 4x4/s2 kernels K5a-c."""
-    return FCDiscriminator(cfg.num_classes, cfg.disc_ndf, dtype=getattr(torch, cfg.compute_dtype),
-                           fused_conv1=fused_conv1).to(device)
+    with setup_span("setup.build"):
+        return FCDiscriminator(cfg.num_classes, cfg.disc_ndf, dtype=getattr(torch, cfg.compute_dtype),
+                               fused_conv1=fused_conv1).to(device)
 
 
 @torch.no_grad()
@@ -120,6 +129,11 @@ def load_variables(model: torch.nn.Module, variables: Mapping[str, torch.Tensor]
     lacks are ignored (a float model ignores the quant collections) and
     those it has but ``variables`` lacks keep their zero init (calibration
     starts from zeros)."""
+    with setup_span("setup.build"):
+        _load_variables(model, variables)
+
+
+def _load_variables(model: torch.nn.Module, variables: Mapping[str, torch.Tensor]) -> None:
     own = model.state_dict()
     unknown = [k for k in variables if k not in own and not _is_quant(k)]
     if unknown:

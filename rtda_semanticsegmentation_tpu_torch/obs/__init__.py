@@ -1,6 +1,6 @@
 """Observability: metric logging (jsonl, W&B, null), performance profiling,
-a timeline trace, the per-module parameter table and the per-module FLOP
-table."""
+a timeline trace, the program's spans and counters (``spans.py``), the
+per-module parameter table and the per-module FLOP table."""
 
 from .logging import MetricLogger, make_logger
 from .profiler import count_params, performance_metrics, trace

@@ -2,8 +2,8 @@
 timeline trace (port of the JAX package's ``obs/profiler.py``).
 
 The reference's protocol: batch 1 at the eval size, 10 warm-up and 100
-timed forwards. On a CUDA device the forwards are timed by CUDA events; on
-the CPU by ``time.perf_counter``. FLOPs come from
+timed forwards. The forwards are timed in spans of ``obs/spans.py``: by
+CUDA events on a CUDA device, by the host clock on the CPU. FLOPs come from
 ``torch.utils.flop_counter.FlopCounterMode`` over one forward: it counts
 the convolutions and matrix products (2 per multiply-accumulate), where the
 JAX package reads XLA's cost analysis of the compiled forward, which also
@@ -12,6 +12,7 @@ counts elementwise work, so the two totals differ.
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from contextlib import contextmanager
@@ -19,6 +20,8 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+
+from . import spans
 
 
 def count_params(params) -> int:
@@ -42,30 +45,14 @@ def model_flops(fn: Callable, *args) -> Optional[float]:
     return float(total) if total else None
 
 
-class _Timer:
-    """Elapsed milliseconds of a block: CUDA events on a CUDA device, else
-    the host clock."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-
-    def __enter__(self):
-        if self.cuda:
-            self._start = torch.cuda.Event(enable_timing=True)
-            self._end = torch.cuda.Event(enable_timing=True)
-            self._start.record()
-        else:
-            self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        if self.cuda:
-            self._end.record()
-            self._end.synchronize()
-            self.ms = self._start.elapsed_time(self._end)
-        else:
-            self.ms = (time.perf_counter() - self._t0) * 1e3
-        return False
+def _timed(fn: Callable, x: torch.Tensor, calls: int) -> float:
+    """Seconds of ``calls`` calls of ``fn(x)``, in a span of the recorder
+    (``obs/spans.py``): on the device's timeline on a CUDA device, else the
+    host clock."""
+    with spans.span("perf.latency", x.device, always=True) as block:
+        for _ in range(calls):
+            fn(x)
+    return block.device_ms * 1e-3
 
 
 def timed_latency(fn: Callable, x: torch.Tensor, iterations: int = 100, warmup: int = 10,
@@ -73,21 +60,12 @@ def timed_latency(fn: Callable, x: torch.Tensor, iterations: int = 100, warmup: 
     """Latency of ``fn(x)``: the mean over one run of ``iterations`` calls
     after ``warmup`` calls, and the std / p50 over ``blocks`` runs of
     ``iterations // blocks`` calls each."""
-    timer = _Timer(x.device)
     with torch.inference_mode():
         for _ in range(max(warmup, 1)):
             fn(x)
-        with timer:
-            for _ in range(iterations):
-                fn(x)
-        mean_s = timer.ms / 1e3 / iterations
+        mean_s = _timed(fn, x, iterations) / iterations
         per_block = max(1, iterations // blocks)
-        block_means = []
-        for _ in range(blocks):
-            with timer:
-                for _ in range(per_block):
-                    fn(x)
-            block_means.append(timer.ms / 1e3 / per_block)
+        block_means = [_timed(fn, x, per_block) / per_block for _ in range(blocks)]
     t = np.asarray(block_means)
     return {
         "mean_latency_ms": float(mean_s * 1e3),
@@ -120,22 +98,43 @@ def performance_metrics(model: torch.nn.Module, height: int = 512, width: int = 
     }
 
 
-@contextmanager
-def trace(log_dir: str = "logs/trace"):
-    """A ``torch.profiler`` timeline trace around a block (the host, and the
-    card where there is one), written as ``<log_dir>/trace_<pid>_<n>.json``
-    for chrome://tracing or Perfetto. Yields the profiler."""
+def start_trace() -> torch.profiler.profile:
+    """Start a ``torch.profiler`` trace of the host and, where there is one,
+    the card; :func:`stop_trace` ends it."""
     activities = [torch.profiler.ProfilerActivity.CPU]
-    cuda = torch.cuda.is_available()
-    if cuda:
+    if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=activities)
     prof.start()
+    prof.started_ns = time.time_ns()
+    return prof
+
+
+def stop_trace(prof: torch.profiler.profile, path: str) -> str:
+    """Wait for the card, stop ``prof`` and write its timeline to ``path``
+    (chrome://tracing or Perfetto) with, under the key ``spans``, the
+    recorder's spans (``obs/spans.py``) that opened during the trace, their
+    device ms read from their events. Returns ``path``."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.stop()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        timeline = json.load(f)
+    timeline["spans"] = spans.export(since_ns=prof.started_ns)
+    with open(path, "w") as f:
+        json.dump(timeline, f)
+    return path
+
+
+@contextmanager
+def trace(log_dir: str = "logs/trace"):
+    """A ``torch.profiler`` timeline trace around a block (the host, and the
+    card where there is one), written by :func:`stop_trace` as
+    ``<log_dir>/trace_<pid>_<n>.json``. Yields the profiler."""
+    prof = start_trace()
     try:
         yield prof
     finally:
-        if cuda:
-            torch.cuda.synchronize()
-        prof.stop()
-        os.makedirs(log_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.monotonic_ns()}.json"))
+        stop_trace(prof, os.path.join(log_dir, f"trace_{os.getpid()}_{time.monotonic_ns()}.json"))

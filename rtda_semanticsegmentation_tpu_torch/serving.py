@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from .obs.spans import Unit, span
 from .ops.augment import normalize_u8
 
 ARTIFACT_GRAPH = "model.pt2"
@@ -110,11 +111,27 @@ def make_serving_fn(model_cfg, augment_cfg, variables, precision: str = "bf16", 
     def logits(images_u8):
         return module.logits(torch.as_tensor(images_u8, device=device))
 
+    serve = _served(module, device)
+    serve.logits = logits  # (B, classes, H, W), for checks of the forward
+    return serve
+
+
+def _served(program, device):
+    """``program`` behind the serving call's spans (``obs/spans.py``):
+    ``serve.request`` holds ``serve.copy_in`` (the frames to ``device``)
+    and ``serve.forward`` (``program``: normalize, forward, argmax,
+    uint8). The spans stay outside ``program``, so an exported graph holds
+    none."""
+    unit = Unit("serve.request")
+
     @torch.inference_mode()
     def serve(images_u8):
-        return module(torch.as_tensor(images_u8, device=device))
+        with unit(device):
+            with span("serve.copy_in"):
+                x = torch.as_tensor(images_u8, device=device)
+            with span("serve.forward"):
+                return program(x)
 
-    serve.logits = logits  # (B, classes, H, W), for checks of the forward
     return serve
 
 
@@ -198,10 +215,4 @@ def load_artifact(path: str, device="cuda"):
     exported = torch.export.load(graph)
     if meta.get("platforms", [device.type]) != [device.type]:
         exported = move_to_device_pass(exported, device)
-    program = exported.module()
-
-    @torch.inference_mode()
-    def fn(images_u8):
-        return program(torch.as_tensor(images_u8, device=device))
-
-    return fn, meta
+    return _served(exported.module(), device), meta

@@ -15,11 +15,13 @@ run preempted and resumed from its checkpoint ends with the same weights as
 one that ran through (the same bits, on the CPU).
 
 The loop records, in ``Trainer.timings``: each step's time on the device's
-timeline, from a CUDA event recorded before it to the next step's (or the
-epoch end's), so a device left waiting for the host, for the next batch
-among others, counts that wait; the host's wait for each batch (an epoch's
-first wait comes before any event of the epoch); the eval time per batch
-and each checkpoint save's seconds.
+timeline, a ``loop.step`` span (``obs/spans.py``) from a CUDA event recorded
+before it to the next step's (or the epoch end's), so a device left waiting
+for the host, for the next batch among others, counts that wait; the host's
+wait for each batch, a ``loop.loader_wait`` span (an epoch's first wait comes
+before any step span of the epoch); the eval time per batch and each
+checkpoint save's seconds. A ``profile_steps`` trace carries the spans that
+opened during it, the step's phases among them (``obs/profiler.py``).
 
 Data parallel (``cfg.mesh`` over a ``torch.distributed`` process group,
 ``parallel/``): each data index loads its rows of every global batch,
@@ -65,6 +67,8 @@ from ..models.factory import (
 )
 from ..models.layers import fold_kernel_operands, sync_batch_norm
 from ..obs import make_logger, performance_metrics
+from ..obs import profiler as profiling
+from ..obs.spans import span
 from ..ops.augment import normalize_u8
 from ..parallel import create_mesh, shard_state, sync_any_flag, tp
 from .checkpoint import CheckpointManager
@@ -348,27 +352,33 @@ def _per_class_table(per_class_ious) -> str:
 
 
 class _StepClock:
-    """Marks before each step of an epoch and at its end: CUDA events (the
-    device's timeline, no host sync) or host times on the CPU."""
+    """The loop's step spans (``loop.step`` of ``obs/spans.py``, always on):
+    each opens before a step and closes where the next opens, or where the
+    epoch's ``with`` block ends, so it holds the step and the wait for the
+    next batch. Their device ms are the device's timeline (CUDA events, no
+    host sync) or the host clock on the CPU."""
 
     def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks = []
+        self.device = device
+        self.spans = []
 
-    def mark(self) -> None:
-        if self.cuda:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            self.marks.append(event)
-        else:
-            self.marks.append(time.perf_counter())
+    def mark(self, last: bool = False) -> None:
+        """Close the open step's span; open the next one unless ``last``."""
+        if self.spans and self.spans[-1].t1 == 0:
+            self.spans[-1].close()
+        if not last:
+            self.spans.append(span("loop.step", self.device, always=True, unit=True).open())
 
     def step_ms(self) -> list:
-        """Milliseconds between consecutive marks; call after a sync."""
-        pairs = zip(self.marks, self.marks[1:])
-        if self.cuda:
-            return [a.elapsed_time(b) for a, b in pairs]
-        return [(b - a) * 1e3 for a, b in pairs]
+        """Each step's milliseconds; call after a sync."""
+        return [s.device_ms for s in self.spans]
+
+    def __enter__(self) -> "_StepClock":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.mark(last=True)
+        return False
 
 
 def _resume(trainer: Trainer, state: TrainState, say):
@@ -474,10 +484,8 @@ def run_experiment(cfg: ExperimentConfig, run_name: Optional[str] = None, measur
 
     def stop_trace():
         nonlocal profiler, trace_stop_after
-        profiler.stop()
-        os.makedirs(trace_dir, exist_ok=True)
-        path = os.path.join(trace_dir, f"trace_step{trace_stop_after - t.profile_steps}.json")
-        profiler.export_chrome_trace(path)
+        path = profiling.stop_trace(
+            profiler, os.path.join(trace_dir, f"trace_step{trace_stop_after - t.profile_steps}.json"))
         profiler, trace_stop_after = None, None
         return path
 
@@ -504,55 +512,49 @@ def run_experiment(cfg: ExperimentConfig, run_name: Optional[str] = None, measur
                 batches = itertools.islice(batches, resume_skip_steps, None)
                 resume_skip_steps = 0
             batches = iter(batches)
-            clock = _StepClock(trainer.device)
-            while True:
-                tw = time.perf_counter()
-                batch = next(batches, None)
-                if batch is None:
-                    break
-                trainer.timings["loader_wait_ms"].append((time.perf_counter() - tw) * 1e3)
-                if trace_dir is not None and profiler is None and host_step - run_start_step >= TRACE_SKIP:
-                    if trainer.device.type == "cuda":
-                        torch.cuda.synchronize(trainer.device)  # drain the warm-up steps
-                    activities = [torch.profiler.ProfilerActivity.CPU]
-                    if trainer.device.type == "cuda":
-                        activities.append(torch.profiler.ProfilerActivity.CUDA)
-                    profiler = torch.profiler.profile(activities=activities)
-                    profiler.start()
-                    trace_stop_after = host_step + t.profile_steps
-                clock.mark()
-                trainer.aug_generator.manual_seed(step_seed(trainer.aug_seed, state.step))
-                state, metrics = trainer.train_step(state, batch, trainer.aug_generator)
-                n_batches += 1
-                host_step += 1
-                if profiler is not None and host_step >= trace_stop_after:
-                    if trainer.device.type == "cuda":
-                        torch.cuda.synchronize(trainer.device)
-                    path = stop_trace()
-                    trace_dir = None
-                    say(f"  profiler trace of {t.profile_steps} steps -> {path} (chrome://tracing)")
-                # device tensors; the watch norms have their own cadence
-                for k, v in metrics.items():
-                    if not k.startswith("watch/"):
-                        running[k] = running[k] + v if k in running else v.clone()
-                if host_step % t.print_freq_batch == 0:
-                    host = _host_scalars({f"train/{k}": v for k, v in metrics.items() if not k.startswith("watch/")})
-                    logger.log(host, host_step)
-                    if t.halt_on_nonfinite:
-                        check_finite_or_halt(host, host_step, "batch log point")
-                watch_freq = cfg.obs.watch_freq_steps
-                if watch_freq > 0 and host_step % watch_freq == 0:
-                    logger.log(_host_scalars({k: v for k, v in metrics.items() if k.startswith("watch/")}),
-                               host_step)
-                # the flag lands on the ranks at different times: they agree
-                # on it at the same steps, or one would leave the collectives
-                if mesh.world == 1:
-                    preempted = preempt.requested
-                elif host_step % PREEMPT_SYNC_EVERY == 0:
-                    preempted = sync_any_flag(preempt.requested, trainer.device)
-                if preempted:
-                    break
-            clock.mark()
+            with _StepClock(trainer.device) as clock:
+                while True:
+                    with span("loop.loader_wait", always=True) as wait:
+                        batch = next(batches, None)
+                    if batch is None:
+                        break
+                    trainer.timings["loader_wait_ms"].append(wait.host_ms)
+                    if trace_dir is not None and profiler is None and host_step - run_start_step >= TRACE_SKIP:
+                        if trainer.device.type == "cuda":
+                            torch.cuda.synchronize(trainer.device)  # drain the warm-up steps
+                        profiler = profiling.start_trace()
+                        trace_stop_after = host_step + t.profile_steps
+                    clock.mark()
+                    trainer.aug_generator.manual_seed(step_seed(trainer.aug_seed, state.step))
+                    state, metrics = trainer.train_step(state, batch, trainer.aug_generator)
+                    n_batches += 1
+                    host_step += 1
+                    if profiler is not None and host_step >= trace_stop_after:
+                        path = stop_trace()
+                        trace_dir = None
+                        say(f"  profiler trace of {t.profile_steps} steps -> {path} (chrome://tracing)")
+                    # device tensors; the watch norms have their own cadence
+                    for k, v in metrics.items():
+                        if not k.startswith("watch/"):
+                            running[k] = running[k] + v if k in running else v.clone()
+                    if host_step % t.print_freq_batch == 0:
+                        host = _host_scalars({f"train/{k}": v for k, v in metrics.items()
+                                              if not k.startswith("watch/")})
+                        logger.log(host, host_step)
+                        if t.halt_on_nonfinite:
+                            check_finite_or_halt(host, host_step, "batch log point")
+                    watch_freq = cfg.obs.watch_freq_steps
+                    if watch_freq > 0 and host_step % watch_freq == 0:
+                        logger.log(_host_scalars({k: v for k, v in metrics.items() if k.startswith("watch/")}),
+                                   host_step)
+                    # the flag lands on the ranks at different times: they agree
+                    # on it at the same steps, or one would leave the collectives
+                    if mesh.world == 1:
+                        preempted = preempt.requested
+                    elif host_step % PREEMPT_SYNC_EVERY == 0:
+                        preempted = sync_any_flag(preempt.requested, trainer.device)
+                    if preempted:
+                        break
             if preempted:
                 if profiler is not None:
                     stop_trace()

@@ -42,6 +42,15 @@ applied, and DeepLabV2 has parameters outside its optimizer, on both of
 which DDP's reducer hooks misfire. The metrics are the global values: the
 shares summed over the data group in one more ``all_reduce``.
 
+Spans (``obs/spans.py``; recorded while a profiler runs, and on a step
+function's first call): ``train.step`` holds, in order, ``train.augment``
+(the source's augmentation, the target's normalization), ``train.g_forward``
+(G's forwards, the live target's D input), ``train.d_step`` (adversarial:
+D's input, forwards, loss, backward and update), ``train.loss`` (the
+segmentation loss, the adversarial BCE through D), ``train.g_backward``
+(G's backward) and ``train.optimizer`` (grad norm, update, metrics); each
+``mesh.reduce_grads`` runs in a ``train.grad_sync``.
+
 The step reads nothing back to the host, so it never waits for the device;
 its metrics are device tensors. It clears the gradients of the whole model
 before each backward, so a parameter outside the optimizer (DeepLabV2's
@@ -58,6 +67,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ExperimentConfig
 from ..models.layers import running_stats_held
+from ..obs.spans import Unit, span
 from ..ops.augment import augment_batch, normalize_u8
 from ..ops.losses import bce_with_logits, cross_entropy_with_ignore, lovasz_softmax, lovasz_softmax_binned
 from ..parallel.tp import sharded_ids
@@ -160,6 +170,14 @@ def _watch_norms(module: torch.nn.Module, tag: str, mesh=None) -> Metrics:
     return out
 
 
+def _reduce_grads(module: torch.nn.Module, mesh) -> None:
+    """Sum the gradients over the mesh (``MeshContext.reduce_grads``);
+    nothing without one."""
+    if mesh is not None:
+        with span("train.grad_sync"):
+            mesh.reduce_grads(module, sharded_ids(module))
+
+
 def _update(optimizer: torch.optim.Optimizer, lr: float) -> None:
     for group in optimizer.param_groups:
         group["lr"] = lr
@@ -241,82 +259,96 @@ def make_train_step(cfg: ExperimentConfig, g_schedule: Callable[[int], float],
     compute_dtype = getattr(torch, cfg.model.compute_dtype)
     use_aux = bool(cfg.loss.aux_weight)
     watch = cfg.obs.watch_freq_steps > 0
+    unit = Unit("train.step")
 
     def source_step(state: TrainState, batch, generator) -> Tuple[TrainState, Metrics]:
-        images, labels = _prep_source(batch, generator, cfg, mesh)
-        # NHWC -> NCHW view: channels_last memory, which the convs read as it is
-        x = images.to(compute_dtype).permute(0, 3, 1, 2)
-        logits, sup1, sup2 = _apply_train(state.model, x, use_aux, remat)
-        loss, parts = _seg_loss(logits, labels, cfg, aux=(sup1, sup2), mesh=mesh)
-        state.model.zero_grad(set_to_none=True)
-        loss.backward()
-        if mesh is not None:
-            mesh.reduce_grads(state.model, sharded_ids(state.model))
-        grad_norm = _grad_norm(state.model, mesh)
-        _update(state.optimizer, state.schedule(state.step))
-        metrics = {
-            "loss": loss.detach(),
-            "lr": torch.full((), g_schedule(state.step), device=loss.device),
-            "grad_norm": grad_norm,
-            **{k: v.detach() for k, v in parts.items()},
-        }
-        if watch:
-            metrics.update(_watch_norms(state.model, "g", mesh))
-        state.step += 1
-        return state, _global_losses(metrics, mesh)
+        with unit(batch["image"].device):
+            with span("train.augment"):
+                images, labels = _prep_source(batch, generator, cfg, mesh)
+            with span("train.g_forward"):
+                # NHWC -> NCHW view: channels_last memory, which the convs read as it is
+                x = images.to(compute_dtype).permute(0, 3, 1, 2)
+                logits, sup1, sup2 = _apply_train(state.model, x, use_aux, remat)
+            with span("train.loss"):
+                loss, parts = _seg_loss(logits, labels, cfg, aux=(sup1, sup2), mesh=mesh)
+            with span("train.g_backward"):
+                state.model.zero_grad(set_to_none=True)
+                loss.backward()
+                _reduce_grads(state.model, mesh)
+            with span("train.optimizer"):
+                grad_norm = _grad_norm(state.model, mesh)
+                _update(state.optimizer, state.schedule(state.step))
+                metrics = {
+                    "loss": loss.detach(),
+                    "lr": torch.full((), g_schedule(state.step), device=loss.device),
+                    "grad_norm": grad_norm,
+                    **{k: v.detach() for k, v in parts.items()},
+                }
+                if watch:
+                    metrics.update(_watch_norms(state.model, "g", mesh))
+                state.step += 1
+                metrics = _global_losses(metrics, mesh)
+        return state, metrics
 
     def adversarial_step(state: TrainState, batch, generator) -> Tuple[TrainState, Metrics]:
-        images_s, labels_s = _prep_source(batch, generator, cfg, mesh)
-        images_t = normalize_u8(batch["target_image"], cfg.augment,
-                                dtype=torch.promote_types(compute_dtype, torch.float32))
-        g, d = state.model, state.discriminator
-        # one G forward per domain, source first (BatchNorm statistics in that
-        # order); its graph serves G's backward
-        pred_s, sup1, sup2 = _apply_train(g, images_s.to(compute_dtype).permute(0, 3, 1, 2), use_aux, remat)
-        pred_t, _, _ = _apply_train(g, images_t.to(compute_dtype).permute(0, 3, 1, 2), False, remat)
-        pool = cfg.adversarial.disc_downsample
-        sm_t_live = _disc_input(pred_t, pool, compute_dtype)
+        with unit(batch["image"].device):
+            with span("train.augment"):
+                images_s, labels_s = _prep_source(batch, generator, cfg, mesh)
+                images_t = normalize_u8(batch["target_image"], cfg.augment,
+                                        dtype=torch.promote_types(compute_dtype, torch.float32))
+            g, d = state.model, state.discriminator
+            pool = cfg.adversarial.disc_downsample
+            with span("train.g_forward"):
+                # one G forward per domain, source first (BatchNorm statistics in
+                # that order); its graph serves G's backward
+                pred_s, sup1, sup2 = _apply_train(g, images_s.to(compute_dtype).permute(0, 3, 1, 2), use_aux, remat)
+                pred_t, _, _ = _apply_train(g, images_t.to(compute_dtype).permute(0, 3, 1, 2), False, remat)
+                sm_t_live = _disc_input(pred_t, pool, compute_dtype)
 
-        # D first, on the detached maps
-        sm_s = _disc_input(pred_s.detach(), pool, compute_dtype)
-        sm_t = sm_t_live.detach()
-        d.zero_grad(set_to_none=True)
-        loss_d = 0.5 * (bce_with_logits(d(sm_s), REAL_LABEL, mesh) + bce_with_logits(d(sm_t), FAKE_LABEL, mesh))
-        loss_d.backward()
-        if mesh is not None:
-            mesh.reduce_grads(d, sharded_ids(d))
-        grad_norm_d = _grad_norm(d, mesh)
-        _update(state.d_optimizer, state.d_schedule(state.step))
+            with span("train.d_step"):
+                # D first, on the detached maps
+                sm_s = _disc_input(pred_s.detach(), pool, compute_dtype)
+                sm_t = sm_t_live.detach()
+                d.zero_grad(set_to_none=True)
+                loss_d = 0.5 * (bce_with_logits(d(sm_s), REAL_LABEL, mesh)
+                                + bce_with_logits(d(sm_t), FAKE_LABEL, mesh))
+                loss_d.backward()
+                _reduce_grads(d, mesh)
+                grad_norm_d = _grad_norm(d, mesh)
+                _update(state.d_optimizer, state.d_schedule(state.step))
 
-        # G through the updated D: D's parameters take no gradient
-        loss_seg, parts = _seg_loss(pred_s, labels_s, cfg, aux=(sup1, sup2), mesh=mesh)
-        d.requires_grad_(False)
-        try:
-            loss_adv = bce_with_logits(d(sm_t_live), REAL_LABEL, mesh)
-        finally:
-            d.requires_grad_(True)
-        loss = loss_seg + cfg.adversarial.lambda_adv * loss_adv
-        g.zero_grad(set_to_none=True)
-        loss.backward()
-        if mesh is not None:
-            mesh.reduce_grads(g, sharded_ids(g))
-        grad_norm = _grad_norm(g, mesh)
-        _update(state.optimizer, state.schedule(state.step))
-        metrics = {
-            "loss": loss.detach(),
-            "loss_d": loss_d.detach(),
-            "lr": torch.full((), g_schedule(state.step), device=loss.device),
-            "lr_d": torch.full((), d_schedule(state.step), device=loss.device),
-            "grad_norm": grad_norm,
-            "grad_norm_d": grad_norm_d,
-            **{k: v.detach() for k, v in parts.items()},
-            "loss_seg": loss_seg.detach(),
-            "loss_adv_g": loss_adv.detach(),
-        }
-        if watch:
-            metrics.update(_watch_norms(g, "g", mesh))
-            metrics.update(_watch_norms(d, "d", mesh))
-        state.step += 1
-        return state, _global_losses(metrics, mesh)
+            with span("train.loss"):
+                # G through the updated D: D's parameters take no gradient
+                loss_seg, parts = _seg_loss(pred_s, labels_s, cfg, aux=(sup1, sup2), mesh=mesh)
+                d.requires_grad_(False)
+                try:
+                    loss_adv = bce_with_logits(d(sm_t_live), REAL_LABEL, mesh)
+                finally:
+                    d.requires_grad_(True)
+                loss = loss_seg + cfg.adversarial.lambda_adv * loss_adv
+            with span("train.g_backward"):
+                g.zero_grad(set_to_none=True)
+                loss.backward()
+                _reduce_grads(g, mesh)
+            with span("train.optimizer"):
+                grad_norm = _grad_norm(g, mesh)
+                _update(state.optimizer, state.schedule(state.step))
+                metrics = {
+                    "loss": loss.detach(),
+                    "loss_d": loss_d.detach(),
+                    "lr": torch.full((), g_schedule(state.step), device=loss.device),
+                    "lr_d": torch.full((), d_schedule(state.step), device=loss.device),
+                    "grad_norm": grad_norm,
+                    "grad_norm_d": grad_norm_d,
+                    **{k: v.detach() for k, v in parts.items()},
+                    "loss_seg": loss_seg.detach(),
+                    "loss_adv_g": loss_adv.detach(),
+                }
+                if watch:
+                    metrics.update(_watch_norms(g, "g", mesh))
+                    metrics.update(_watch_norms(d, "d", mesh))
+                state.step += 1
+                metrics = _global_losses(metrics, mesh)
+        return state, metrics
 
     return adversarial_step if adversarial else source_step

@@ -194,6 +194,7 @@ PORT_ENTRY_MODULES = (
     "rtda_semanticsegmentation_tpu_torch.train.loop",
     "rtda_semanticsegmentation_tpu_torch.obs.logging",
     "rtda_semanticsegmentation_tpu_torch.obs.profiler",
+    "rtda_semanticsegmentation_tpu_torch.obs.spans",
     "rtda_semanticsegmentation_tpu_torch.obs.summary",
     "rtda_semanticsegmentation_tpu_torch.parallel",
     "rtda_semanticsegmentation_tpu_torch.parallel.mesh",
