@@ -9,8 +9,8 @@ failure:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles ``csrc/int8_conv.cu``, ``csrc/lovasz.cu``,
-   ``csrc/conv4x4s2.cu`` and ``csrc/conv3x3.cu`` for sm_90a into
-   build/kernels/, one nvcc each, started together; prints the ptxas
+   ``csrc/conv4x4s2.cu``, ``csrc/conv3x3.cu`` and ``csrc/upsample.cu`` for
+   sm_90a into build/kernels/, one nvcc each, started together; prints the ptxas
    reports and, per source, the registers and spill bytes;
 3. kernels: the s8 conv kernel (K3) against its plain PyTorch version at
    every quantized conv shape of BiSeNet-R18 at 512x1024, batch 8: bf16
@@ -33,9 +33,16 @@ failure:
    against its plain version at every distinct shape of the three serve
    paths below, with and without its epilogue: f32 output within 1e-5 *
    max |ref|, bf16 output within one bf16 ulp + 1e-5 * max |ref| (f32 sums
-   in another order).
+   in another order); the resize's backward (``kernels/upsample.py``) at
+   its seven sites on the train paths (``UPSAMPLE_SITES``: the flagship's
+   logits and ARM features of both domains, DeepLabV2's logits), batch 8,
+   in the main path's layouts, against its plain version's exact sums (f32
+   weights, f64 products): bf16 within one bf16 ulp + 1e-5 * max |ref|, f32
+   within 1e-6 * max |ref|, its largest error no larger than PyTorch's own
+   backward's, the same bits on a second call, no copy.
    Times each kernel, its plain version, its bound and, for K4 and K5a-c,
-   cuDNN's bf16 conv (every kernel and cuDNN's convs replayed from a CUDA
+   cuDNN's bf16 conv, for the resize's backward PyTorch's own (every
+   kernel and cuDNN's convs replayed from a CUDA
    graph, the device time without the host's; also launched back to back,
    per shape and summed per forward or flagship step); prints the TOP/s,
    TFLOP/s or GB/s, the share of the bound and the host microseconds per
@@ -70,7 +77,8 @@ failure:
    (losses within 1e-4 relative, grad norm within 1e-2: the convs, the
    BatchNorm statistics and K1's error sums add in other orders). Then 8
    steps on one repeated batch: every loss finite, the mean of the last 3
-   below the first, K1 and K2 launched exactly once per step. Prints
+   below the first, K1 and K2 launched exactly once per step and the
+   resize's backward 3 times (cx1, cx2, the logits) with no copy. Prints
    ms/step and img/s (CUDA events, after 3 warm-up steps) and the peak
    device memory;
 7. adversarial: the flagship preset ``bisenet_adversarial_lovasz``
@@ -84,8 +92,10 @@ failure:
    within 1e-2 relative: the bf16 discriminator rounds after sums taken in
    another order). Then 8 steps on one repeated batch: every loss finite,
    the mean of the last 3 below the first, loss_d first within 0.1 of ln 2,
-   and per step K5a launched 3 times, K5b 2, K5c 1, K1 1 and K2 1, with no
-   K5 operand copy. Prints
+   and per step K5a launched 3 times, K5b 2, K5c 1, K1 1, K2 1 and the
+   resize's backward 6 (both domains' cx1, cx2 and logits), with no K5
+   operand copy and no copy of a resize's gradient (the calls' shapes and
+   layouts are printed). Prints
    ms/step, source img/s and peak memory, and the same time with the
    default discriminator;
 8. loop: a whole training job through the CLI entry point
@@ -126,7 +136,8 @@ failure:
    statistics, bit for bit (each with its peak memory and a second step's
    time); then 8 steps on one repeated batch: losses finite and falling,
    every BatchNorm affine bit-identical to its init, every running
-   statistic moved. Prints ms/step, img/s and peak memory. BiSeNet-R101's
+   statistic moved, the resize's backward launched once a step with no
+   copy. Prints ms/step, img/s and peak memory. BiSeNet-R101's
    vanilla step (``bisenet_source_aug`` on a ResNet-101 context path, b8
    512x1024) runs from its init twice, the second run timed;
 11. deeplab loop (run after phase 8): ``cli/train.main`` with
@@ -160,10 +171,10 @@ failure:
    ``--worker cli``, which calls ``cli/train_adversarial.main``: its start
    line must name NCCL and world 1, K1 and K2 must launch once per step,
    and its logged losses must equal the same run's without the launcher:
-   step 1 bit for bit; later steps within 1e-2 relative, as two runs
-   without the launcher differ too (printed): the bf16 bilinear
-   upsample's backward adds in bf16 (an ulp is 3.9e-3) with atomics, in no
-   fixed order.
+   step 1 bit for bit; later steps within 1e-2 relative, beside the
+   difference of two runs without the launcher (printed): a kernel that
+   adds with atomics in no fixed order rounds its bf16 sums (an ulp is
+   3.9e-3) differently from run to run.
    K1's and K2's counts in the kernels line add these launches.
    (b) Two ranks on the one card over gloo (``--worker dp``, each on cuda:0
    through ``parallel.ensure_distributed(backend="gloo")`` and
@@ -198,7 +209,8 @@ failure:
 The last two lines are a JSON summary of the kernels and the result line.
 ``python3 chip_smoke.py --only distributed`` runs phases 1, 2, 13 and 14
 alone (a quicker check of the distributed path), ``--only tp`` phases 1, 2
-and 14; ``--worker`` is the form phases 13 and 14 start their ranks with.
+and 14, ``--only upsample`` phases 1, 2 and the resize backward's part of
+phase 3; ``--worker`` is the form phases 13 and 14 start their ranks with.
 """
 
 from __future__ import annotations
@@ -206,6 +218,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -227,6 +240,7 @@ from rtda_semanticsegmentation_tpu_torch.kernels import conv3x3 as k4
 from rtda_semanticsegmentation_tpu_torch.kernels import conv4x4 as kc
 from rtda_semanticsegmentation_tpu_torch.kernels import int8_conv as k3
 from rtda_semanticsegmentation_tpu_torch.kernels import lovasz as klov
+from rtda_semanticsegmentation_tpu_torch.kernels import upsample as kup
 from rtda_semanticsegmentation_tpu_torch.models.factory import (
     build_discriminator,
     build_model,
@@ -279,6 +293,21 @@ PEAK_BYTES = 3.35e12
 # the adversarial phase: the discriminator's input maps (source, target)
 NDF = 64
 SOURCE_HW, TARGET_HW = (720, 1280), (512, 1024)
+# the resize's backward at its sites on the train paths, batch 8: (where, C,
+# input size, output size, the gradient's layout there, launches per
+# flagship step, per DeepLabV2 step). The logits' gradients come from the
+# loss in contiguous NCHW; the ARM features' are channel slices of the FFM
+# concatenation's channels_last gradient (1024 channels: cx1 at 256, cx2 at
+# 512).
+UPSAMPLE_SITES = (
+    ("flagship source logits", 19, (90, 160), SOURCE_HW, "nchw", 1, 0),
+    ("flagship target logits", 19, (64, 128), TARGET_HW, "nchw", 1, 0),
+    ("flagship source cx1", 256, (45, 80), (90, 160), "slice", 1, 0),
+    ("flagship source cx2", 512, (23, 40), (90, 160), "slice", 1, 0),
+    ("flagship target cx1", 256, (32, 64), (64, 128), "slice", 1, 0),
+    ("flagship target cx2", 512, (16, 32), (64, 128), "slice", 1, 0),
+    ("DeepLabV2 logits", 19, (65, 129), (H, W), "nchw", 0, 1),
+)
 # plain versions swapped in for each kernel of a path: (module, wrapper)
 LOVASZ_KERNELS = ((klov, "lovasz_hist"), (klov, "lovasz_bwd"))
 CONV4_KERNELS = ((kc, "conv4x4s2p1"), (kc, "conv4x4s2p1_dw"), (kc, "conv4x4s2p1_dx"))
@@ -363,7 +392,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    libraries = (k3._library, klov._library, kc._library, k4._library)
+    libraries = (k3._library, klov._library, kc._library, k4._library, kup._library)
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, started together
         for f in [pool.submit(lib) for lib in libraries]:
             f.result()
@@ -813,6 +842,85 @@ def phase_conv3_kernels() -> dict:
               f"{t['library_ms']:.4f} ms cuDNN, {t['bound_ms']:.4f} ms bound")
     total = {key: sum(t[key] for t in per_model.values()) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     return {**total, "max_abs_err": max_err, "bound_by": max(by, key=by.get)}
+
+
+def _upsample_dy(c, out_hw, layout, dtype, seed):
+    """A batch-8 gradient of the resize's output in the main path's layout
+    (``UPSAMPLE_SITES``)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    if layout == "slice":
+        lo = 256 if c == 256 else 512
+        big = torch.randn((BATCH, 1024) + tuple(out_hw), generator=g, device=DEV).to(dtype)
+        return big.contiguous(memory_format=torch.channels_last)[:, lo:lo + c]
+    return torch.randn((BATCH, c) + tuple(out_hw), generator=g, device=DEV).to(dtype)
+
+
+def phase_upsample_kernels() -> dict:
+    """The resize's backward (``kernels/upsample.py``) at its seven sites on
+    the train paths, in the main path's layouts, bf16 and f32, against the
+    plain version's exact sums (the forward's f32 weights, f64 products):
+    within one bf16 ulp (+ 1e-5 * max |ref|) in bf16, within 1e-6 * max
+    |ref| in f32, its largest error no larger than PyTorch's own
+    backward's, the same bits on a second call, no operand copy. Timed in
+    bf16 from a CUDA graph (and back to back), beside its bound (dy read
+    once, dx written once), the plain version and PyTorch's backward
+    (``library_ms``). Returns, for the kernels line, the sums over one
+    flagship step and one DeepLabV2 step."""
+    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+           "bound_by": "bytes"}
+    steps = {"flagship": [0.0, 0.0, 0.0, 0.0], "DeepLabV2": [0.0, 0.0, 0.0, 0.0]}
+    _zero_counters("upsample.copies")
+    for i, (where, c, in_hw, out_hw, layout, per_flagship, per_deeplab) in enumerate(UPSAMPLE_SITES):
+        for dtype in (torch.float32, torch.bfloat16):
+            dy = _upsample_dy(c, out_hw, layout, dtype, 500 + i)
+            got = kup.upsample_bilinear_bwd(dy, in_hw, torch.channels_last)
+            again = kup.upsample_bilinear_bwd(dy, in_hw, torch.channels_last)
+            want = kup.upsample_bilinear_bwd_plain(dy, in_hw, exact=True)
+            aten = torch.ops.aten.upsample_bilinear2d_backward(dy, list(out_hw), [BATCH, c, *in_hw], False)
+            torch.cuda.synchronize()
+            scale = want.abs().max().item()
+            err = (got.double() - want).abs().max().item()
+            aten_err = (aten.double() - want).abs().max().item()
+            if dtype == torch.bfloat16:
+                ok, tol = _within_bf16_ulp(got, want), "1 bf16 ulp + 1e-5 * max |ref|"
+            else:
+                ok, tol = err <= 1e-6 * scale, "1e-6 * max |ref|"
+            same = torch.equal(got, again)
+            print(f"kernel upsample_bilinear_bwd {where} ({BATCH}, {c}) {out_hw} -> {in_hw} {dtype} "
+                  f"({layout}, layout {kup.layout_of(dy)}): max |diff| against f64 {err:.3e} (PyTorch's backward "
+                  f"{aten_err:.3e}; max |ref| {scale:.3e}, tolerance {tol}); the same bits on a second call: {same}")
+            if not ok or err > aten_err or not same or not got.is_contiguous(memory_format=torch.channels_last):
+                raise AssertionError(f"the resize's backward kernel ({where}, {dtype}) fails its gates")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            del got, again, want, aten
+        nbytes = (dy.numel() + BATCH * c * in_hw[0] * in_hw[1]) * dy.element_size()
+        fn = functools.partial(kup.upsample_bilinear_bwd, dy, in_hw, torch.channels_last)
+        ms = graph_ms(fn)
+        stream_ms = cuda_ms(fn, 20)
+        us = host_us(fn)
+        plain_ms = cuda_ms(functools.partial(kup.upsample_bilinear_bwd_plain, dy, in_hw), 3, 1)
+        library_ms = graph_ms(functools.partial(torch.ops.aten.upsample_bilinear2d_backward, dy, list(out_hw),
+                                                [BATCH, c, *in_hw], False))
+        bound, _ = bound_ms(nbytes)
+        plan = kup.plan_of(dy, in_hw, kup.layout_of(dy))
+        print(f"kernel upsample_bilinear_bwd {where} bf16: {ms:.4f} ms ({nbytes / (ms * 1e-3) / 1e9:.0f} GB/s, "
+              f"{bound / ms:.3f} of the bound; {stream_ms:.4f} ms launched back to back), plain {plain_ms:.4f} ms, "
+              f"PyTorch's backward {library_ms:.4f} ms, bound {bound:.4f} ms (bytes, {nbytes / 1e6:.1f} MB), host "
+              f"{us:.1f} us per launch; plan {plan}")
+        for step, count in (("flagship", per_flagship), ("DeepLabV2", per_deeplab)):
+            for k, v in enumerate((ms, plain_ms, library_ms, bound)):
+                steps[step][k] += count * v
+        out["ms"] += ms
+        out["plain_ms"] += plain_ms
+        out["library_ms"] += library_ms
+        out["bound_ms"] += bound
+        del dy
+    if kup.copies:
+        raise AssertionError(f"the resize's backward copied {kup.copies} gradients in the main path's layouts")
+    for step, (ms, plain_ms, library_ms, bound) in steps.items():
+        print(f"kernel upsample_bilinear_bwd per {step} step: {ms:.4f} ms kernel ({bound / ms:.3f} of the bound), "
+              f"{plain_ms:.4f} ms plain, {library_ms:.4f} ms PyTorch's backward, {bound:.4f} ms bound")
+    return out
 
 
 def _frames(seed: int) -> torch.Tensor:
@@ -1355,6 +1463,23 @@ def _card_vs_cpu_f32_step(cfg) -> None:
         raise AssertionError("the f32 train step on the card disagrees with the CPU's")
 
 
+@contextlib.contextmanager
+def _upsample_census():
+    """The distinct calls of the resize's backward while the block runs:
+    (C, output size, input size, the layout the kernel reads)."""
+    seen, launch = set(), kup.upsample_bilinear_bwd
+
+    def recording(dy, in_hw, *args, **kw):
+        seen.add((dy.shape[1], tuple(dy.shape[2:]), tuple(in_hw), kup.layout_of(dy)))
+        return launch(dy, in_hw, *args, **kw)
+
+    kup.upsample_bilinear_bwd = recording
+    try:
+        yield seen
+    finally:
+        kup.upsample_bilinear_bwd = launch
+
+
 def _timed_steps(state, step, batch, gen, steps: int) -> tuple:
     """``steps`` steps on one batch; (metrics, ms/step by CUDA events over
     the steps after WARMUP_STEPS)."""
@@ -1390,9 +1515,10 @@ def phase_train() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the main path: the kernels' launches during the train steps only
-    _zero_counters("lovasz.hist_launches", "lovasz.bwd_launches")
+    _zero_counters("lovasz.hist_launches", "lovasz.bwd_launches", "upsample.bwd_launches", "upsample.copies")
     metrics, ms = _timed_steps(state, step, batch, gen, TRAIN_STEPS)
-    launches = {"lovasz_hist": klov.hist_launches, "lovasz_bwd": klov.bwd_launches}
+    launches = {"lovasz_hist": klov.hist_launches, "lovasz_bwd": klov.bwd_launches,
+                "upsample_bilinear_bwd": kup.bwd_launches}
     losses = [float(m["loss"]) for m in metrics]
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"train {cfg.train_mode} b{b} {h}x{w} bf16: losses " + " ".join(f"{x:.4f}" for x in losses))
@@ -1403,8 +1529,12 @@ def phase_train() -> dict:
         raise AssertionError(f"non-finite train loss: {losses}")
     if not np.mean(losses[-3:]) < losses[0]:
         raise AssertionError(f"the loss on a repeated batch did not fall: {losses}")
-    if launches != {"lovasz_hist": TRAIN_STEPS, "lovasz_bwd": TRAIN_STEPS}:
-        raise AssertionError(f"expected one K1 and one K2 launch per step, got {launches}")
+    # the resize's backward: the ARM features cx1 and cx2 and the logits
+    if launches != {"lovasz_hist": TRAIN_STEPS, "lovasz_bwd": TRAIN_STEPS, "upsample_bilinear_bwd": 3 * TRAIN_STEPS}:
+        raise AssertionError(f"expected one K1 and one K2 launch and 3 of the resize's backward per step, "
+                             f"got {launches}")
+    if kup.copies:
+        raise AssertionError(f"the resize's backward copied {kup.copies} gradients on the train path")
     return launches
 
 
@@ -1431,13 +1561,14 @@ def phase_adversarial() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the main path: the kernels' launches during the adversarial steps only
-    _zero_counters("lovasz.hist_launches", "lovasz.bwd_launches")
+    _zero_counters("lovasz.hist_launches", "lovasz.bwd_launches", "upsample.bwd_launches", "upsample.copies")
     _zero_counters("conv4x4.fwd_launches", "conv4x4.dw_launches", "conv4x4.dx_launches", "conv4x4.copies")
-    metrics, ms = _timed_steps(state, step, batch, gen, TRAIN_STEPS)
-    k5_copies = kc.copies
+    with _upsample_census() as census:
+        metrics, ms = _timed_steps(state, step, batch, gen, TRAIN_STEPS)
+    k5_copies, upsample_copies = kc.copies, kup.copies
     launches = {"conv4x4s2p1": kc.fwd_launches, "conv4x4s2p1_dw": kc.dw_launches,
                 "conv4x4s2p1_dx": kc.dx_launches, "lovasz_hist": klov.hist_launches,
-                "lovasz_bwd": klov.bwd_launches}
+                "lovasz_bwd": klov.bwd_launches, "upsample_bilinear_bwd": kup.bwd_launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
     del state, step
     losses = {k: [float(m[k]) for m in metrics] for k in ("loss", "loss_d", "loss_adv_g", "loss_seg")}
@@ -1446,7 +1577,9 @@ def phase_adversarial() -> dict:
         print(f"adversarial {cfg.train_mode} b{b} source {sh}x{sw} target {th}x{tw} "
               f"{cfg.model.compute_dtype}: {k} "
               + " ".join(f"{x:.4f}" for x in v))
-    print(f"adversarial: launches {launches} over {TRAIN_STEPS} steps, {k5_copies} K5 operand copies")
+    print(f"adversarial: launches {launches} over {TRAIN_STEPS} steps, {k5_copies} K5 operand copies, "
+          f"{upsample_copies} copies by the resize's backward; its calls in a step (C, out -> in, layout): "
+          f"{sorted(census)}")
 
     # the same steps with the default discriminator (cuDNN conv1), for comparison
     state, step = _train_setup(cfg, DEV)
@@ -1463,9 +1596,11 @@ def phase_adversarial() -> dict:
         raise AssertionError(f"the loss on a repeated batch did not fall: {losses['loss']}")
     if abs(losses["loss_d"][0] - np.log(2.0)) > 0.1:
         raise AssertionError(f"loss_d starts at {losses['loss_d'][0]}, not within 0.1 of ln 2")
-    if k5_copies:
-        raise AssertionError(f"the flagship path made {k5_copies} K5 operand copies")
-    want = {"conv4x4s2p1": 3, "conv4x4s2p1_dw": 2, "conv4x4s2p1_dx": 1, "lovasz_hist": 1, "lovasz_bwd": 1}
+    if k5_copies or upsample_copies:
+        raise AssertionError(f"the flagship path made {k5_copies} K5 operand copies and {upsample_copies} copies "
+                             f"of the resize's gradients")
+    want = {"conv4x4s2p1": 3, "conv4x4s2p1_dw": 2, "conv4x4s2p1_dx": 1, "lovasz_hist": 1, "lovasz_bwd": 1,
+            "upsample_bilinear_bwd": 6}
     if launches != {k: n * TRAIN_STEPS for k, n in want.items()}:
         raise AssertionError(f"expected per step {want} launches, got {launches} over {TRAIN_STEPS} steps")
     return launches, ms_default
@@ -1479,15 +1614,17 @@ def _bn_affines(model) -> dict:
     return {n: p.detach().clone() for n, p in model.named_parameters() if is_bn_affine(n)}
 
 
-def phase_deeplab_train() -> None:
+def phase_deeplab_train() -> int:
     """The ``deeplabv2_cityscapes`` step (DeepLabV2, bf16, SGD, batch 8 at
     512x1024, the BatchNorm affines frozen): an f32 step at 2x64x96 on the
     card against the CPU's; from one state a step with ``train.remat`` and
     one without (the same loss and running statistics, bit for bit, each
     step's peak memory); then 8 steps on one repeated batch from the init:
     losses finite and falling, every BatchNorm affine bit-identical to its
-    init, every running statistic moved. BiSeNet-R101's vanilla step at the
-    same size, once after one warm-up step."""
+    init, every running statistic moved, one launch of the resize's backward
+    a step and no copy. BiSeNet-R101's vanilla step at the same size, once
+    after one warm-up step. Returns the resize backward's launches in the 8
+    steps."""
     cfg = get_preset("deeplabv2_cityscapes")
     h, w = cfg.train_size
     b = cfg.train.batch_size
@@ -1528,8 +1665,16 @@ def phase_deeplab_train() -> None:
     affines, stats = _bn_affines(state.model), _running_stats(state.model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    metrics, ms = _timed_steps(state, step, batch, torch.Generator(device=DEV).manual_seed(7), TRAIN_STEPS)
+    _zero_counters("upsample.bwd_launches", "upsample.copies")
+    with _upsample_census() as census:
+        metrics, ms = _timed_steps(state, step, batch, torch.Generator(device=DEV).manual_seed(7), TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    resizes = (kup.bwd_launches, kup.copies)
+    print(f"deeplabv2 train: the resize's backward {resizes[0]} launches and {resizes[1]} copies over "
+          f"{TRAIN_STEPS} steps; its calls in a step (C, out -> in, layout): {sorted(census)}")
+    if resizes != (TRAIN_STEPS, 0):
+        raise AssertionError(f"expected one launch of the resize's backward per DeepLabV2 step and no copy, "
+                             f"got {resizes}")
     losses = [float(m["loss"]) for m in metrics]
     print(f"deeplabv2 {cfg.train_mode} b{b} {h}x{w} bf16: losses " + " ".join(f"{x:.4f}" for x in losses))
     print(f"deeplabv2 train: {ms:.3f} ms/step, {b * 1e3 / ms:.1f} img/s (CUDA events over "
@@ -1576,6 +1721,7 @@ def phase_deeplab_train() -> None:
     if not all(np.isfinite(losses)) or losses[0] != losses[1]:
         raise AssertionError(f"BiSeNet-R101's step: losses {losses}, not finite or not the same from one state")
     del state, step, batch, saved
+    return resizes[0]
 
 
 LOOP_DIR = os.path.join("build", "chip_smoke_loop")
@@ -2152,11 +2298,16 @@ def main() -> None:
         if kind == "tp":
             return worker_tp(out, int(sys.argv[4]))
         return worker_cli(out, sys.argv[4:]) if kind == "cli" else worker_dp(out)
-    if sys.argv[1:] not in ([], ["--only", "distributed"], ["--only", "tp"]):
-        raise SystemExit(f"unknown arguments {sys.argv[1:]}: none, --only distributed or --only tp")
+    if sys.argv[1:] not in ([], ["--only", "distributed"], ["--only", "tp"], ["--only", "upsample"]):
+        raise SystemExit(f"unknown arguments {sys.argv[1:]}: none, --only distributed, --only tp or "
+                         f"--only upsample")
     t0 = time.perf_counter()
     card = phase_device()
     phase_build()
+    if sys.argv[1:] == ["--only", "upsample"]:
+        phase_upsample_kernels()
+        print(f"chip_smoke.py: the upsample phase passed in {time.perf_counter() - t0:.1f} s")
+        return
     if sys.argv[1:]:
         if sys.argv[2] == "distributed":
             phase_distributed(card)
@@ -2168,6 +2319,7 @@ def main() -> None:
     lovasz_times = phase_lovasz_kernels()
     conv4_times = phase_conv4_kernels()
     conv3_times = phase_conv3_kernels()
+    upsample_times = phase_upsample_kernels()
     k3_launches, k4_launches = phase_slice()
     artifact_k3, artifact_k4 = phase_artifact(card)
     k3_launches += artifact_k3
@@ -2177,7 +2329,8 @@ def main() -> None:
     k3_launches += r101_k3_launches
     train_launches = phase_train()
     adversarial_launches, isolated_ms = phase_adversarial()
-    phase_deeplab_train()
+    upsample_launches = train_launches.pop("upsample_bilinear_bwd") + adversarial_launches["upsample_bilinear_bwd"]
+    upsample_launches += phase_deeplab_train()
     k3_launches += phase_loop(isolated_ms)
     k3_launches += phase_deeplab_loop()
     dist_launches = phase_distributed(card)
@@ -2200,6 +2353,9 @@ def main() -> None:
     } for name, line in (("conv4x4s2p1", 155), ("conv4x4s2p1_dw", 262), ("conv4x4s2p1_dx", 403))] + [{
         "name": "conv3x3", "route": "cuda", "source": f"{pkg}/conv3x3.cu",
         "replaces": f"{ref}/pallas_conv3.py:120", "launches": k4_launches, **conv3_times,
+    }, {
+        "name": "upsample_bilinear_bwd", "route": "cuda", "source": f"{pkg}/upsample.cu", "replaces": None,
+        "launches": upsample_launches, **upsample_times,
     }]
     print(f"chip_smoke.py: all phases passed in {time.perf_counter() - t0:.1f} s, the build included")
     print(json.dumps({"kernels": kernels}))

@@ -30,8 +30,10 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from ..kernels import conv3x3 as _k4
+from ..kernels import upsample as _upsample
 from ..kernels.int8_conv import kmajor_weights
 from ..ops.quant import calib_clip_channels, fold_bn_epilogue, freeze_weights, int8_conv_unsigned
 
@@ -381,12 +383,31 @@ def global_avg_pool(x, keepdims: bool = True):
     return x.to(acc).mean(dim=(2, 3), keepdim=keepdims).to(x.dtype)
 
 
+class _ResizeBilinear(torch.autograd.Function):
+    """``F.interpolate``'s bilinear resize, its backward the gather of
+    ``kernels/upsample.py`` (the kernel on the card, its plain version on the
+    CPU), the input gradient in ``x``'s memory format."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.in_hw, ctx.memory_format = (x.shape[2], x.shape[3]), _upsample.memory_format_of(x)
+        return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        return _upsample.upsample_bilinear_bwd(_upsample.operand(dy), ctx.in_hw, ctx.memory_format), None
+
+
 def resize_bilinear(x, size: Tuple[int, int]):
     """Bilinear resize with half-pixel centres, in the input dtype.
 
     Equals ``jax.image.resize(..., "bilinear")`` only when upsampling (JAX
     antialiases a downsample), which every call site does; a downsample
-    raises."""
+    raises. Where ``x`` needs a gradient, the backward is the gather of
+    ``kernels/upsample.py``; otherwise this is ``F.interpolate`` alone."""
     if size[0] < x.shape[2] or size[1] < x.shape[3]:
         raise ValueError(f"resize_bilinear only upsamples: {tuple(x.shape[2:])} -> {tuple(size)}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ResizeBilinear.apply(x, tuple(size))
     return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False)

@@ -5,9 +5,10 @@ PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerance: none, except the Lovász histogram's f32 error sums and the
-4x4/s2 and 3x3 conv kernels' f32 sums, which add in another order (stated
-at the tests); the kernels round like their plain versions.
+Tolerance: none, except the Lovász histogram's f32 error sums, the
+4x4/s2 and 3x3 conv kernels' f32 sums and the resize backward's f32 sums,
+which add in another order (stated at the tests); the kernels round like
+their plain versions.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ from rtda_semanticsegmentation_tpu_torch.kernels import conv3x3 as k4
 from rtda_semanticsegmentation_tpu_torch.kernels import conv4x4 as kc
 from rtda_semanticsegmentation_tpu_torch.kernels import int8_conv as k3
 from rtda_semanticsegmentation_tpu_torch.kernels import lovasz as klov
+from rtda_semanticsegmentation_tpu_torch.kernels import upsample as kup
 from rtda_semanticsegmentation_tpu_torch.ops.losses import lovasz_softmax_binned
 
 # (kernel, stride, pad, C, CO): BiSeNet-R18's quantized conv shapes, narrowed
@@ -451,3 +453,148 @@ def test_artifact_exported_on_the_cpu_runs_k3_on_the_card(tmp_path):
     torch.cuda.synchronize()
     assert (k3.launches - before[0], k3.copies - before[1]) == (15, 0)
     assert got.device.type == "cuda" and torch.equal(got, want)
+
+
+# The resize's sites on the train paths at batch 8, (C, in_hw, out_hw, the
+# layout of the gradient there): the flagship's source and target logits
+# (contiguous NCHW from the loss), its ARM features cx1 and cx2 (channel
+# slices of the FFM concatenation's channels_last gradient, 1024 channels:
+# cx1 at 256, cx2 at 512), DeepLabV2's logits.
+UPSAMPLE_SITES = [
+    (19, (90, 160), (720, 1280), "nchw"), (19, (64, 128), (512, 1024), "nchw"),
+    (256, (45, 80), (90, 160), "slice"), (512, (23, 40), (90, 160), "slice"),
+    (256, (32, 64), (64, 128), "slice"), (512, (16, 32), (64, 128), "slice"),
+    (19, (65, 129), (512, 1024), "nchw"),
+]
+UPSAMPLE_IDS = ["src_logits", "tgt_logits", "src_cx1", "src_cx2", "tgt_cx1", "tgt_cx2", "dlv2_logits"]
+
+
+def _upsample_dy(c, out_hw, layout, dtype, seed, n=8):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if layout == "slice":
+        lo = 256 if c == 256 else 512
+        big = torch.randn((n, 1024, *out_hw), generator=g, device="cuda").to(dtype)
+        return big.contiguous(memory_format=torch.channels_last)[:, lo:lo + c]
+    dy = torch.randn((n, c, *out_hw), generator=g, device="cuda").to(dtype)
+    return dy.contiguous(memory_format=torch.channels_last) if layout == "channels_last" else dy
+
+
+def _within_bf16_ulp(got, want) -> bool:
+    """Within one bf16 ulp of the f64 ``want``, plus 1e-6 of its largest
+    value: the f32 sum of an element that cancels to far below its terms
+    is off by more than that element's own ulp before it is rounded."""
+    _, e = torch.frexp(want)
+    return bool(((got.double() - want).abs() <= torch.ldexp(torch.ones_like(want), e - 8)
+                 + 1e-6 * want.abs().max()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,in_hw,out_hw,layout", UPSAMPLE_SITES, ids=UPSAMPLE_IDS)
+def test_upsample_bwd_kernel_matches_plain_version(c, in_hw, out_hw, layout, dtype):
+    """At each site, in the main path's layout, against the plain version's
+    exact sums (the forward's f32 weights, f64 products): bf16 within one
+    bf16 ulp (f32 sums, rounded once; ``_within_bf16_ulp``), f32 within
+    1e-6 of the largest value (f32 sums in another order), and the largest
+    error
+    against f64 no larger than PyTorch's own backward's (bf16 atomics for a
+    bf16 gradient); channels_last out, as the model's resize asks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dy = _upsample_dy(c, out_hw, layout, dtype, c + in_hw[0])
+    got = kup.upsample_bilinear_bwd(dy, in_hw, torch.channels_last)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
+    want = kup.upsample_bilinear_bwd_plain(dy, in_hw, exact=True)
+    aten = torch.ops.aten.upsample_bilinear2d_backward(dy, list(out_hw), [8, c, *in_hw], False)
+    err = (got.double() - want).abs()
+    if dtype == torch.bfloat16:
+        assert _within_bf16_ulp(got, want)
+    else:
+        assert err.max().item() <= 1e-6 * want.abs().max().item()
+    assert err.max().item() <= (aten.double() - want).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,in_hw,out_hw,layout", [UPSAMPLE_SITES[0], UPSAMPLE_SITES[3]],
+                         ids=["src_logits", "src_cx2"])
+def test_upsample_bwd_kernel_is_the_same_bits_on_a_repeat(c, in_hw, out_hw, layout):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dy = _upsample_dy(c, out_hw, layout, torch.bfloat16, 11)
+    first = kup.upsample_bilinear_bwd(dy, in_hw)
+    assert torch.equal(first, kup.upsample_bilinear_bwd(dy, in_hw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_format", ["contiguous", "channels_last"])
+@pytest.mark.parametrize("c,layout,want", [(19, "nchw", kup.ROWS), (19, "channels_last", kup.MERGED),
+                                           (24, "channels_last", kup.TILED), (256, "slice", kup.TILED),
+                                           (40, "nchw", kup.ROWS)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_upsample_bwd_kernel_takes_both_layouts(c, layout, want, out_format, dtype):
+    """Each way the kernel reads a row (ROWS; MERGED at 19 channels; TILED;
+    a channel slice; 40 channels in two ROWS tiles) at DeepLabV2's odd
+    9x17 -> 65x129, either memory format out, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dy = _upsample_dy(c, (65, 129), layout, dtype, c, n=2)
+    assert kup.layout_of(dy) == want
+    fmt = {"contiguous": torch.contiguous_format, "channels_last": torch.channels_last}[out_format]
+    got = kup.upsample_bilinear_bwd(dy, (9, 17), fmt)
+    torch.cuda.synchronize()
+    assert got.is_contiguous(memory_format=fmt)
+    ref = kup.upsample_bilinear_bwd_plain(dy, (9, 17), exact=True)
+    if dtype == torch.bfloat16:
+        assert _within_bf16_ulp(got, ref)
+    else:
+        assert (got.double() - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_upsample_bwd_counts_each_launch_and_each_copy():
+    """One launch a call, and one a backward of the model's resize, which
+    copies only a gradient in a layout the kernel does not take."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtda_semanticsegmentation_tpu_torch.models.layers import resize_bilinear
+
+    dy = _upsample_dy(19, (64, 128), "nchw", torch.bfloat16, 3, n=2)
+    before = (kup.bwd_launches, kup.copies)
+    for _ in range(3):
+        kup.upsample_bilinear_bwd(dy, (8, 16))
+    assert (kup.bwd_launches - before[0], kup.copies - before[1]) == (3, 0)
+    x = torch.randn((2, 19, 8, 16), device="cuda").to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    resize_bilinear(x, (64, 128)).backward(dy)
+    assert (kup.bwd_launches - before[0], kup.copies - before[1]) == (4, 0)
+    assert x.grad.is_contiguous(memory_format=torch.channels_last)
+    odd = torch.randn((2, 19, 128, 64), device="cuda").to(torch.bfloat16).transpose(2, 3)
+    x.grad = None
+    resize_bilinear(x, (64, 128)).backward(odd)
+    torch.cuda.synchronize()
+    assert (kup.bwd_launches - before[0], kup.copies - before[1]) == (5, 1)
+    ref = kup.upsample_bilinear_bwd_plain(odd, (8, 16), exact=True)
+    assert _within_bf16_ulp(x.grad, ref)
+    x.grad = None
+    resize_bilinear(x, (64, 128)).sum().backward()  # an expanded gradient: every stride 0
+    torch.cuda.synchronize()
+    assert (kup.bwd_launches - before[0], kup.copies - before[1]) == (6, 2)
+    ones = torch.ones((2, 19, 64, 128), device="cuda", dtype=torch.bfloat16)
+    assert _within_bf16_ulp(x.grad, kup.upsample_bilinear_bwd_plain(ones, (8, 16), exact=True))
+
+
+@pytest.mark.cuda
+def test_upsample_bwd_kernel_refuses_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dy = torch.zeros((2, 19, 64, 128), device="cuda", dtype=torch.bfloat16)
+    for bad in (dy.half(), dy.double()):
+        with pytest.raises(ValueError, match="bf16 or f32"):
+            kup.upsample_bilinear_bwd(bad, (8, 16))
+    with pytest.raises(ValueError, match="channel stride 1 or W stride 1"):
+        kup.upsample_bilinear_bwd(dy.transpose(2, 3), (16, 8))
+    with pytest.raises(ValueError, match="channel stride 1 or W stride 1"):
+        kup.upsample_bilinear_bwd(dy.contiguous(memory_format=torch.channels_last)[:, 3:], (8, 16))
+    with pytest.raises(ValueError, match="upsample only"):
+        kup.upsample_bilinear_bwd(dy, (65, 16))

@@ -181,6 +181,7 @@ PORT_ENTRY_MODULES = (
     "rtda_semanticsegmentation_tpu_torch.kernels.lovasz",
     "rtda_semanticsegmentation_tpu_torch.kernels.conv4x4",
     "rtda_semanticsegmentation_tpu_torch.kernels.conv3x3",
+    "rtda_semanticsegmentation_tpu_torch.kernels.upsample",
     "rtda_semanticsegmentation_tpu_torch.models.discriminator",
     "rtda_semanticsegmentation_tpu_torch.models.deeplabv2",
     "rtda_semanticsegmentation_tpu_torch.ops.losses",
