@@ -26,7 +26,7 @@ import torch
 
 from h100_bench.lib import compare, device as dev, scenes, trace as tr, weights
 from h100_bench.lib.outcome import Context, Outcome
-from h100_bench.lib.port import experiment
+from h100_bench.lib.port import counted_since, counters, experiment
 from h100_bench.lib.seeds import sub
 from h100_bench.reference import nets
 from h100_bench.reference.serve import batch_statistics, logits as reference_logits
@@ -37,10 +37,11 @@ KIND = "serve"
 def make_weights(config: dict, traffic: dict, seed: int, device):
     """Seeded kernels; BatchNorm statistics of four seeded frames of the
     traffic's size (``reference/serve.py::batch_statistics``)."""
-    shapes = nets.param_shapes(config["model"], train=False)
-    w = weights.make(shapes, seed, "generator", device, config.get("init", ()))
+    model = config["model"]
+    w = weights.make(nets.param_shapes(model, train=False), seed, "generator", device, config.get("init", ()),
+                     rule=nets.arch(model).init_rule)
     gen = torch.Generator(device=device).manual_seed(sub(seed, "statistics"))
-    frames = scenes.make(4, *traffic["size"], gen, config["model"]["num_classes"], with_labels=False)[0]
+    frames = scenes.make(4, *traffic["size"], gen, model["num_classes"], with_labels=False)[0]
     batch_statistics(config, w, frames)
     return w
 
@@ -153,8 +154,10 @@ def run(ctx: Context) -> Outcome:
     peak = dev.peak_bytes(ctx.device)
     dev.note(f"smi before window: {dev.smi()}")
     dev.reset_peak(ctx.device)
+    before = counters()
     n, secs = prog.loop(seconds=ctx.seconds)
     window_peak = dev.peak_bytes(ctx.device)
+    counted = counted_since(before)
     dev.note(f"smi after window: {dev.smi()}")
     lat = sorted(prog.latency)
     # nearest rank: at least 95% of the requests took no longer
@@ -179,5 +182,5 @@ def run(ctx: Context) -> Outcome:
         end_to_end={"serve_img_s": n * b / secs, "serve_p95_ms": p95 * 1e3, "setup_s": setup_s},
         attempted=n, failed=0, numbers=numbers, limits=settings["limits"], units=n, window_s=secs, batch=b,
         setup_s=setup_s, peak_bytes=max(peak, window_peak), window_peak_bytes=window_peak, dispatch_s=dispatch,
-        flops_per_unit=flops, trace=trace,
+        flops_per_unit=flops, trace=trace, counters=counted, config=ctx.config, traffic=traffic,
     )

@@ -13,21 +13,21 @@ and feed as the window's, to the window. The window runs steps until
 ``--seconds`` have passed on the host, then waits for the device: the
 rate is all steps over all that time. With ``--trace 1`` a traced stretch
 of ``trace_units`` more steps follows, after ``trace_warmup`` steps under
-the profiler that are not kept (the cell's settings). Then the
+the profiler that are not kept (the cell's settings; ``host_cpus``, where
+set, keeps the process on that many CPUs from the window on). Then the
 program is freed and the reference follows the first steps from the same
 weights, frames and generator states.
 """
 
 from __future__ import annotations
 
-import sys
 import time
 
 import torch
 
 from h100_bench.lib import compare, device as dev, scenes, trace as tr, weights
 from h100_bench.lib.outcome import Context, Outcome
-from h100_bench.lib.port import experiment
+from h100_bench.lib.port import counted_since, counters, experiment
 from h100_bench.lib.seeds import sub
 from h100_bench.reference import nets
 from h100_bench.reference.train import follow
@@ -37,10 +37,12 @@ KIND = "train"
 
 def make_weights(config: dict, seed: int, device):
     model = config["model"]
-    g = weights.make(nets.param_shapes(model, train=True), seed, "generator", device, config.get("init", ()))
+    g = weights.make(nets.param_shapes(model, train=True), seed, "generator", device, config.get("init", ()),
+                     rule=nets.arch(model).init_rule)
     d = None
     if config["adversarial"]["enabled"]:
-        d = weights.make(nets.discriminator_shapes(model), seed, "discriminator", device, config.get("d_init", ()))
+        d = weights.make(nets.discriminator_shapes(model), seed, "discriminator", device, config.get("d_init", ()),
+                         rule=nets.default_init)
     return g, d
 
 
@@ -97,7 +99,7 @@ class Program:
         factory.load_variables(model, g_w)
         max_iter, power = cfg["schedule"]["max_iter"], exp.optimizer.poly_power
         g_sched = schedule.poly_lr_schedule(exp.optimizer.learning_rate, max_iter, power)
-        tx = optim.build_generator_tx(exp.optimizer, model, freeze_bn=exp.model.name == "deeplabv2",
+        tx = optim.build_generator_tx(exp.optimizer, model, freeze_bn=cfg.get("freeze_bn", False),
                                       decay_exempt=() if exp.loss.aux_weight else factory.AUX_HEADS)
         self.state = state.TrainState(model, tx, g_sched)
         d_sched = None
@@ -180,10 +182,12 @@ def run(ctx: Context) -> Outcome:
     peak = dev.peak_bytes(ctx.device)
     dev.note(f"smi before window: {dev.smi()}")
     dev.reset_peak(ctx.device)
-    before = _counters()
+    if settings.get("host_cpus") and dev.is_cuda(ctx.device):
+        dev.note(f"host: the window's threads kept on CPUs {dev.pin_host(settings['host_cpus'])}")
+    before = counters()
     steps, secs = prog.window(ctx.seconds)
     window_peak = dev.peak_bytes(ctx.device)
-    counters = {k: v - before[k] for k, v in _counters().items()}
+    counted = counted_since(before)
     dev.note(f"smi after window: {dev.smi()}")
     trace = None
     if ctx.trace:
@@ -207,20 +211,6 @@ def run(ctx: Context) -> Outcome:
         kind=KIND, end_to_end={"train_img_s": steps * b / secs, "setup_s": setup_s},
         attempted=steps, failed=0, numbers=numbers, limits=settings["limits"], units=steps, window_s=secs,
         batch=b, setup_s=setup_s, peak_bytes=max(peak, window_peak), window_peak_bytes=window_peak,
-        flops_per_unit=flops, trace=trace, shapes=shapes, counters=counters,
+        flops_per_unit=flops, trace=trace, shapes=shapes, counters=counted, config=ctx.config, traffic=traffic,
     )
 
-
-def _counters() -> dict:
-    """The port's kernel launch counters, as far as its modules have them
-    (the harness prints their change over the window)."""
-    out = {}
-    mods = sys.modules
-    lov = mods.get("rtda_semanticsegmentation_tpu_torch.kernels.lovasz")
-    if lov is not None:
-        out.update({"k1_launches": lov.hist_launches, "k2_launches": lov.bwd_launches})
-    k5 = mods.get("rtda_semanticsegmentation_tpu_torch.kernels.conv4x4")
-    if k5 is not None:
-        out.update({f"k5_{k}": getattr(k5, k) for k in ("fwd_launches", "dw_launches", "dx_launches", "copies")
-                    if hasattr(k5, k)})
-    return out

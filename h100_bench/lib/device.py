@@ -3,6 +3,7 @@ of device time."""
 
 from __future__ import annotations
 
+import os
 import subprocess
 import sys
 
@@ -37,6 +38,18 @@ def smi(index: int = 0) -> str:
         return out.stdout.strip() or out.stderr.strip()
     except (OSError, subprocess.SubprocessError) as err:  # no nvidia-smi: say so, measure on
         return f"nvidia-smi unavailable: {err}"
+
+
+def pin_host(n: int) -> list:
+    """Keep every thread of this process, and each it starts later, on the
+    last ``n`` CPUs it may use; the CPUs kept."""
+    keep = sorted(os.sched_getaffinity(0))[-n:]
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), keep)
+        except OSError:  # the thread has ended
+            pass
+    return keep
 
 
 def info(device, chips: int, peak_bytes: int) -> dict:

@@ -40,4 +40,6 @@ class Outcome:
     flops_per_unit: Optional[float] = None
     trace: Optional[Trace] = None
     shapes: Dict[str, tuple] = field(default_factory=dict)
-    counters: Dict[str, float] = field(default_factory=dict)
+    counters: Dict[str, float] = field(default_factory=dict)  # the port's counters' change over the window
+    config: dict = field(default_factory=dict)  # the cell's configuration and traffic, as the run used them
+    traffic: dict = field(default_factory=dict)

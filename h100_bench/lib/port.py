@@ -10,6 +10,7 @@ found a card.
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
 PACKAGE = "rtda_semanticsegmentation_tpu_torch"
 GROUPS = ("model", "optimizer", "adversarial", "loss", "augment", "data")
@@ -28,3 +29,17 @@ def experiment(config: dict):
         if fields:
             exp = exp.replace(**{group: dataclasses.replace(getattr(exp, group), **fields)})
     return exp
+
+
+def counters() -> Dict[str, int]:
+    """Every counter the port's recorder keeps (``obs/spans.py``), by its
+    own name: those its code has counted in this process."""
+    from rtda_semanticsegmentation_tpu_torch.obs.spans import RECORDER
+
+    return dict(RECORDER.counters)
+
+
+def counted_since(before: Dict[str, int]) -> Dict[str, int]:
+    """Each counter's change since ``before`` (a :func:`counters`), by name."""
+    now = counters()
+    return {k: now.get(k, 0) - before.get(k, 0) for k in sorted({*before, *now})}

@@ -5,7 +5,8 @@
   ``drivers/<driver>.py``;
 - the cell's own settings (the traced stretch, the correctness limits):
   ``workloads/<cell>.json``;
-- a per-layer metric: ``metrics/<metric>.py``.
+- a per-layer metric: ``metrics/<metric>.py``;
+- the reference's network: ``reference/archs/<model name>.py``.
 
 A later cell, configuration, traffic kind or metric is new files and
 entries; nothing here changes.
@@ -13,6 +14,7 @@ entries; nothing here changes.
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from dataclasses import dataclass
@@ -85,6 +87,14 @@ def driver(kind: str, root: Path = ROOT):
 
 def reader(metric: str, root: Path = ROOT):
     return _module(root / BENCH.name / "metrics" / f"{metric}.py", f"h100_bench_metric_{metric.replace('.', '_')}")
+
+
+@functools.lru_cache(maxsize=None)
+def arch(name: str, root: Path = ROOT):
+    """Loaded once a process for each name and root, so that its module
+    state is shared by every step and count."""
+    path = root / BENCH.name / "reference" / "archs" / f"{name}.py"
+    return _module(path, f"h100_bench_arch_{name.replace('.', '_')}")
 
 
 def read_metric(metric: str, run, root: Path = ROOT) -> Optional[float]:

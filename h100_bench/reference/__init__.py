@@ -1,6 +1,7 @@
-"""The plain reference: BiSeNet, DeepLabV2 and the FC-Discriminator, the
-train augmentation, the losses and the optimizers, written from their
-published descriptions in plain float32 PyTorch.
+"""The plain reference: the networks of ``archs/`` (one file an
+architecture, found by the configuration's model name: ``nets.py``) and the
+FC-Discriminator, the train augmentation, the losses and the optimizers,
+written from their published descriptions in plain float32 PyTorch.
 
 It imports nothing of the port, of ``chip_smoke.py`` or of the
 ``profile_*.py`` scripts, and takes nothing the port made: it is given the

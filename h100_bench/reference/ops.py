@@ -4,11 +4,11 @@ The control precision, float8 e4m3, the step below the configurations'
 bfloat16: inside ``activations(True)`` (the reference puts the
 augmentation and the models' forwards there) every floating-point result
 of every operation is rounded to float8 with one scale per tensor (the
-largest magnitude maps to 448), and every conv rounds its weights too, as
-a program computing in float8 would; the losses, the gradients' own
-arithmetic and the optimizer stay float32. The gradient passes each
-rounding unchanged (straight through), so the backward reads the rounded
-values the forward used.
+largest magnitude maps to 448), and every conv and linear layer rounds its
+weights too, as a program computing in float8 would; the losses, the
+gradients' own arithmetic and the optimizer stay float32. The gradient
+passes each rounding unchanged (straight through), so the backward reads
+the rounded values the forward used.
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ class _Float8(torch.overrides.TorchFunctionMode):
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         with torch._C.DisableTorchFunction():
-            if func is F.conv2d:
+            if func in (F.conv2d, F.linear):
                 args = (args[0], round_fp8(args[1]), *args[2:])
         out = func(*args, **(kwargs or {}))
         with torch._C.DisableTorchFunction():

@@ -10,9 +10,11 @@ segmentation loss plus ``lambda_adv`` times the BCE of the updated D on the
 live target map against 1, flows back through D (whose weights take no
 gradient) and G steps. Learning rates follow the poly schedule
 ``lr * (1 - t / max_iter) ** power``. Adam and SGD with momentum are
-PyTorch's, with the weight decay added into the gradient; frozen
-BatchNorm affines (``freeze_bn``) and G's aux heads are left out of the
-optimizer.
+PyTorch's, with the weight decay added into the gradient; AdamW is
+PyTorch's, its decay taken off the weights before the step; frozen
+BatchNorm affines (the configuration's ``freeze_bn``) and the leaves its
+architecture names (``OPTIMIZER_SKIPS``, G's aux heads) are left out of
+the optimizer.
 
 :func:`follow` returns what the benchmark compares: each step's losses,
 each leaf's first gradient as the optimizer takes it (decay included),
@@ -28,7 +30,7 @@ import torch
 
 from . import augment as aug_ref
 from .losses import bce_with_logits, cross_entropy, lovasz_binned
-from .nets import discriminator, generator, is_buffer
+from .nets import arch, discriminator, generator, is_buffer
 from .ops import activations, no_tf32
 
 
@@ -36,30 +38,40 @@ def poly(base: float, max_iter: int, power: float, t: int) -> float:
     return base * max(1.0 - t / float(max_iter), 0.0) ** power
 
 
-def trainable(name: str, freeze_bn: bool) -> bool:
-    """Leaves the generator's optimizer updates."""
-    if is_buffer(name) or name.startswith(("supervision1.", "supervision2.")):
+def trainable(name: str, freeze_bn: bool, skips: tuple) -> bool:
+    """Leaves the generator's optimizer updates: not a buffer, not under a
+    prefix of ``skips``, and no BatchNorm affine where ``freeze_bn``."""
+    if is_buffer(name) or name.startswith(skips):
         return False
     parts = name.split(".")
     return not (freeze_bn and len(parts) >= 2 and parts[-2] == "bn")
 
 
 class Optimizer:
-    """Adam (``eps`` outside the root, bias-corrected) or SGD with momentum;
-    ``weight_decay`` is added into the gradient first."""
+    """Adam (``eps`` outside the root, bias-corrected), SGD with momentum,
+    both with ``weight_decay`` added into the gradient first, or AdamW
+    (``adamw``: Adam on the raw gradient, the weights first scaled by
+    ``1 - lr * weight_decay``)."""
+
+    KINDS = ("adam", "adamw", "sgd")
 
     def __init__(self, kind, wd, momentum=0.9, betas=(0.9, 0.999), eps=1e-8):
+        if kind not in self.KINDS:
+            raise ValueError(f"optimizer {kind!r}: the reference has {self.KINDS}")
         self.kind, self.wd, self.momentum, self.betas, self.eps = kind, wd, momentum, betas, eps
         self.state: Dict[str, dict] = {}
 
     def effective(self, p, g):
-        return g + self.wd * p if self.wd else g
+        """The gradient as the optimizer's state takes it."""
+        return g + self.wd * p if self.wd and self.kind != "adamw" else g
 
     @torch.no_grad()
     def step(self, name, p, g, lr):
         g = self.effective(p, g)
         s = self.state.setdefault(name, {"t": 0})
         s["t"] += 1
+        if self.kind == "adamw" and self.wd:
+            p = p * (1 - lr * self.wd)
         if self.kind == "sgd":
             s["buf"] = g.clone() if "buf" not in s else s["buf"] * self.momentum + g
             return p - lr * s["buf"]
@@ -109,11 +121,11 @@ def follow(cfg: dict, g_weights: dict, d_weights, batches: List[dict], gen_state
 
 def _follow(cfg, g_weights, d_weights, batches, gen_states, device, fp8):
     model, opt_cfg, adv = cfg["model"], cfg["optimizer"], cfg["adversarial"]
-    freeze_bn = model["name"] == "deeplabv2"
+    skips = tuple(arch(model).OPTIMIZER_SKIPS)
     max_iter = cfg["schedule"]["max_iter"]
     G = {k: v.detach().float().clone() for k, v in g_weights.items()}
-    leaves = [k for k in G if trainable(k, freeze_bn)]
-    grad_leaves = [k for k in G if not is_buffer(k) and not k.startswith(("supervision1.", "supervision2."))]
+    leaves = [k for k in G if trainable(k, cfg.get("freeze_bn", False), skips)]
+    grad_leaves = [k for k in G if trainable(k, False, skips)]
     g_opt = Optimizer(opt_cfg["name"], opt_cfg["weight_decay"], opt_cfg["sgd_momentum"],
                       (opt_cfg["adam_b1"], opt_cfg["adam_b2"]))
     D, d_opt = None, None
