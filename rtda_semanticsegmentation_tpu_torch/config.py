@@ -7,6 +7,10 @@ copy so that it, and ``chip_smoke.py`` on a GPU machine, import nothing of
 the JAX package. The port's functions read these configs by attribute, so
 the JAX package's own config objects work as well.
 
+The port's own additions, which the JAX package lacks, are listed in
+:data:`PORT_ONLY_FIELDS` and :data:`PORT_ONLY_PRESETS`: SegFormer's MiT
+widths and its ``segformer_cityscapes`` preset (``models/segformer.py``).
+
 ``MeshConfig`` is the JAX package's: ``data x model`` spans the ranks of
 a ``torch.distributed`` process group, one device each; the batch is split
 over ``data`` and the wide conv kernels' output channels over ``model``
@@ -22,7 +26,7 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class ModelConfig:
-    name: str = "bisenet"  # bisenet | deeplabv2
+    name: str = "bisenet"  # bisenet | deeplabv2 | segformer
     context_path: str = "resnet18"  # resnet18 | resnet101 (BiSeNet's)
     num_classes: int = 19
     compute_dtype: str = "bfloat16"
@@ -39,6 +43,15 @@ class ModelConfig:
     quant_skip: Tuple[str, ...] = ()
     pretrained_backbone: Optional[str] = None  # converted .npz weights
     disc_ndf: int = 64  # FCDiscriminator base width
+    # SegFormer's MiT encoder (models/segformer.py), MiT-B5 by default: per
+    # stage the width, blocks, heads (each width / heads wide) and the
+    # keys' spatial-reduction ratio; the Mix-FFN's widening; the head's width
+    mit_embed_dims: Tuple[int, ...] = (64, 128, 320, 512)
+    mit_depths: Tuple[int, ...] = (3, 6, 40, 3)
+    mit_num_heads: Tuple[int, ...] = (1, 2, 5, 8)
+    mit_sr_ratios: Tuple[int, ...] = (8, 4, 2, 1)
+    mit_mlp_ratio: int = 4
+    decoder_dim: int = 768
 
 
 @dataclass(frozen=True)
@@ -120,9 +133,11 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class OptimizerConfig:
-    name: str = "adam"  # sgd | adam
+    name: str = "adam"  # sgd | adam | adamw
     learning_rate: float = 1e-4
-    weight_decay: float = 1e-4  # L2 into the gradient, as torch's SGD/Adam
+    # L2 into the gradient, as torch's SGD/Adam; adamw: decoupled, the
+    # weights scaled by 1 - lr * weight_decay before the step
+    weight_decay: float = 1e-4
     sgd_momentum: float = 0.9
     adam_b1: float = 0.9
     adam_b2: float = 0.999
@@ -130,7 +145,7 @@ class OptimizerConfig:
 
     @staticmethod
     def default_lr(name: str) -> float:
-        return {"sgd": 2.5e-4, "adam": 1e-4}[name]
+        return {"sgd": 2.5e-4, "adam": 1e-4, "adamw": 6e-5}[name]
 
 
 @dataclass(frozen=True)
@@ -286,13 +301,26 @@ def get_preset(name: str) -> ExperimentConfig:
             optimizer=dataclasses.replace(base.optimizer, name="sgd", learning_rate=2.5e-4),
             augment=dataclasses.replace(base.augment, pipeline="no_new_aug"),
         )
+    if name == "segformer_cityscapes":
+        # SegFormer's Cityscapes recipe (NVlabs' segformer.*.city.160k):
+        # AdamW 6e-5, decay 0.01, poly power 1.0
+        return base.replace(
+            model=dataclasses.replace(base.model, name="segformer"),
+            data=dataclasses.replace(base.data, train_dataset="cityscapes"),
+            optimizer=dataclasses.replace(base.optimizer, name="adamw", learning_rate=6e-5, weight_decay=0.01,
+                                          poly_power=1.0),
+            augment=dataclasses.replace(base.augment, pipeline="no_new_aug"),
+        )
     raise ValueError(f"Unknown preset {name!r}. Presets: {', '.join(PRESETS)}")
 
 
+PORT_ONLY_FIELDS = ("mit_embed_dims", "mit_depths", "mit_num_heads", "mit_sr_ratios", "mit_mlp_ratio",
+                    "decoder_dim")  # of ModelConfig
+PORT_ONLY_PRESETS = ("segformer_cityscapes",)
 PRESETS = (
     "bisenet_source_small",
     "bisenet_source_aug",
     "deeplabv2_cityscapes",
     "bisenet_adversarial",
     "bisenet_adversarial_lovasz",
-)
+) + PORT_ONLY_PRESETS

@@ -1,7 +1,8 @@
 """Model construction, seeded initialization and weight loading.
 
 Port of the JAX ``models/factory.py``: BiSeNet (ResNet-18 or ResNet-101
-context path), DeepLabV2 and the FC-Discriminator. A model's "variables" in
+context path), DeepLabV2 and the FC-Discriminator; and SegFormer (MiT
+encoder, all-MLP head), which the JAX package lacks. A model's "variables" in
 the port are its ``state_dict``; ``models/convert.py`` maps them to and from
 the JAX package's flat keys. :func:`build_model`, :func:`build_discriminator`
 and :func:`load_variables` each run in a ``setup.build`` span
@@ -21,7 +22,10 @@ from .bisenet import BiSeNet
 from .convert import QUANT_FROZEN, QUANT_STATS
 from .deeplabv2 import DeepLabV2
 from .discriminator import FCDiscriminator
-from .layers import Conv, QuantPolicy
+from .layers import Conv, LayerNorm, Linear, QuantPolicy
+from .segformer import SegFormer
+
+MODELS = ("bisenet", "deeplabv2", "segformer")
 
 
 def build_model(cfg: ModelConfig, device="cuda", train: bool = False,
@@ -45,10 +49,13 @@ def build_model(cfg: ModelConfig, device="cuda", train: bool = False,
 
 
 def _build_model(cfg: ModelConfig, device, train: bool, fused_conv3: bool) -> torch.nn.Module:
-    if cfg.name not in ("bisenet", "deeplabv2"):
-        raise ValueError(f"unknown model {cfg.name!r}; options: bisenet, deeplabv2")
+    if cfg.name not in MODELS:
+        raise ValueError(f"unknown model {cfg.name!r}; options: {', '.join(MODELS)}")
     if cfg.quant not in ("none", "calib", "int8", "int8_frozen"):
         raise ValueError(f"unknown quant mode {cfg.quant!r} (none, calib, int8, int8_frozen)")
+    if cfg.name == "segformer" and (cfg.quant != "none" or fused_conv3):
+        raise ValueError("segformer runs in float only: int8 (K3) and fused_conv3 (K4) are ResNet ConvBN paths "
+                         f"(got quant={cfg.quant!r}, fused_conv3={fused_conv3})")
     quant = QuantPolicy(cfg.quant, cfg.quant_min_ch, cfg.quant_clip, tuple(cfg.quant_skip))
     if train and cfg.quant != "none":
         raise ValueError("training runs quant='none'")
@@ -57,6 +64,10 @@ def _build_model(cfg: ModelConfig, device, train: bool, fused_conv3: bool) -> to
     dtype = getattr(torch, cfg.compute_dtype)
     if cfg.name == "deeplabv2":
         model = DeepLabV2(cfg.num_classes, dtype=dtype, quant=quant, fused_conv3=fused_conv3)
+    elif cfg.name == "segformer":
+        model = SegFormer(cfg.num_classes, embed_dims=cfg.mit_embed_dims, depths=cfg.mit_depths,
+                          num_heads=cfg.mit_num_heads, sr_ratios=cfg.mit_sr_ratios, mlp_ratio=cfg.mit_mlp_ratio,
+                          decoder_dim=cfg.decoder_dim, dtype=dtype)
     else:
         model = BiSeNet(cfg.num_classes, cfg.context_path, dtype=dtype, quant=quant,
                         aux_heads=train, fused_conv3=fused_conv3)
@@ -69,7 +80,9 @@ def init_model(model: torch.nn.Module, generator: torch.Generator) -> Dict[str, 
     gives the same weights on any device) as the JAX initializers draw it:
     Kaiming normal, fan-out in the ResNet and fan-in elsewhere, or N(0, std)
     where the conv's ``init`` is a float (DeepLabV2's ASPP, 0.01); conv
-    biases with zeros; BatchNorm starts at identity. Returns the model's
+    biases with zeros; BatchNorm starts at identity. SegFormer's as
+    published: ``Linear`` weights N(0, 0.02) and zero biases, LayerNorms at
+    1 and 0, convs Kaiming fan-out (over the groups). Returns the model's
     variables (its ``state_dict``)."""
     for module in model.modules():
         if isinstance(module, Conv):
@@ -77,10 +90,17 @@ def init_model(model: torch.nn.Module, generator: torch.Generator) -> Dict[str, 
             if isinstance(module.init, float):
                 std = module.init
             else:
-                std = math.sqrt(2.0 / ((i if module.init == "fan_in" else o) * kh * kw))
+                fan = i if module.init == "fan_in" else o // module.groups
+                std = math.sqrt(2.0 / (fan * kh * kw))
             module.weight.copy_(torch.randn(module.weight.shape, generator=generator) * std)
             if module.bias is not None:
                 module.bias.zero_()
+        elif isinstance(module, Linear):
+            module.weight.copy_(torch.randn(module.weight.shape, generator=generator) * module.init)
+            module.bias.zero_()
+        elif isinstance(module, LayerNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
     return model.state_dict()
 
 

@@ -7,6 +7,10 @@ applied in the activation dtype. Activations are
 NCHW tensors, kept in ``channels_last`` memory on the GPU by the serving
 path, so the int8 kernel's NHWC view of them is free.
 
+SegFormer's pieces (``Linear``, ``LayerNorm``, the exact GELU, the
+depthwise ``Conv(groups=...)``) keep the same policy: f32 parameters, the
+compute in the model's dtype, the LayerNorm's statistics in f32.
+
 Module and tensor names mirror the flax tree (``conv``, ``bn``, ``scale`` ->
 ``weight``, ``mean`` -> ``running_mean`` ...), see ``models/convert.py``.
 Parameters are created empty; ``models/factory.py::init_model`` fills them
@@ -59,16 +63,18 @@ class Conv(nn.Module):
     """``flax.linen.Conv`` counterpart: f32 params, compute in ``dtype``.
 
     ``init`` says how the factory draws the kernel: ``fan_in`` or
-    ``fan_out`` (Kaiming normal with that fan mode), or a float, the
-    standard deviation of a zero-mean normal; biases start at zero."""
+    ``fan_out`` (Kaiming normal with that fan mode, the fan-out over
+    ``groups``), or a float, the standard deviation of a zero-mean normal;
+    biases start at zero. ``groups``: ``F.conv2d``'s (``in_ch`` is the
+    depthwise conv's)."""
 
-    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, *, dilation=1,
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, *, dilation=1, groups=1,
                  bias=True, dtype=torch.float32, init="fan_in"):
         super().__init__()
         k = kernel_size
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, k, k))
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, k, k))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
-        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.stride, self.padding, self.dilation, self.groups = stride, padding, dilation, groups
         self.dtype, self.init = dtype, init
         # tensor parallel (parallel/tp.py::shard_state): this rank's slice of
         # the output channels, a parallel.tp.ChannelShard; None: the whole kernel
@@ -85,7 +91,44 @@ class Conv(nn.Module):
             y = s.mesh.gather_channels(y, s.lo, s.full)
             return y if self.bias is None else y + self.bias.to(dt).view(1, -1, 1, 1)
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding, self.dilation)
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding, self.dilation, self.groups)
+
+
+class Linear(nn.Module):
+    """``nn.Linear`` (with a bias) over the last axis, with f32 parameters
+    computed in ``dtype``. The factory draws the weight from N(0,
+    ``init``); the bias starts at zero."""
+
+    def __init__(self, in_ch, out_ch, *, dtype=torch.float32, init=0.02):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch))
+        self.bias = nn.Parameter(torch.empty(out_ch))
+        self.dtype, self.init = dtype, init
+
+    def forward(self, x):
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis, f32 affine parameters (1 and 0) applied
+    in ``dtype``. The mean and variance are taken in f32: ``F.layer_norm``
+    accumulates a bf16 input in f32 and rounds only its output."""
+
+    def __init__(self, ch, eps=1e-5, *, dtype=torch.float32):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+
+    def forward(self, x):
+        dt = self.dtype
+        return F.layer_norm(x.to(dt), self.weight.shape, self.weight.to(dt), self.bias.to(dt), self.eps)
+
+
+def gelu(x):
+    """The exact GELU, ``x * Phi(x)`` with the erf (not the tanh form)."""
+    return F.gelu(x, approximate="none")
 
 
 class QuantConv(Conv):

@@ -4,8 +4,10 @@
 SGD(momentum) or Adam, with the reference's weight decay: torch's L2 added
 into the gradient before the optimizer's own update, as
 ``optax.add_decayed_weights`` placed before the optimizer in the JAX
-package (not the decoupled decay of AdamW). Adam's ``eps`` sits outside the
-square root, as in ``optax.scale_by_adam``. The learning rate is set per
+package. AdamW (SegFormer's, which the JAX package lacks) decouples it:
+the weights are scaled by ``1 - lr * weight_decay`` and Adam runs on the
+raw gradient. Adam's and AdamW's ``eps`` sit outside the square root, as
+in ``optax.scale_by_adam``. The learning rate is set per
 step by the train step from the state's schedule.
 
 DeepLabV2's frozen BatchNorm (``freeze_bn``): JAX gives every ``bn/scale``
@@ -54,9 +56,10 @@ def build_generator_tx(cfg: OptimizerConfig, model: torch.nn.Module, freeze_bn: 
         params.append({"params": groups[True], "weight_decay": 0.0})
     if cfg.name == "sgd":
         return torch.optim.SGD(params, lr=cfg.learning_rate, momentum=cfg.sgd_momentum)
-    if cfg.name == "adam":
-        return torch.optim.Adam(params, lr=cfg.learning_rate, betas=(cfg.adam_b1, cfg.adam_b2), eps=1e-8)
-    raise ValueError(f"unknown optimizer {cfg.name!r}; options: sgd, adam")
+    if cfg.name in ("adam", "adamw"):
+        adam = torch.optim.Adam if cfg.name == "adam" else torch.optim.AdamW
+        return adam(params, lr=cfg.learning_rate, betas=(cfg.adam_b1, cfg.adam_b2), eps=1e-8)
+    raise ValueError(f"unknown optimizer {cfg.name!r}; options: sgd, adam, adamw")
 
 
 def build_discriminator_tx(cfg: AdversarialConfig, model: torch.nn.Module) -> torch.optim.Optimizer:

@@ -111,7 +111,13 @@ def _port_logits(cfg, variables, x, quant=False):
 
 
 def _assert_fields_match(port, ref):
+    """Every field of ``port`` is ``ref``'s, by name and value, but the
+    port's own SegFormer fields (``config.PORT_ONLY_FIELDS``), which
+    ``ref`` lacks."""
     for f in dataclasses.fields(port):
+        if f.name in tconfig.PORT_ONLY_FIELDS:
+            assert not hasattr(ref, f.name), f.name
+            continue
         value = getattr(port, f.name)
         if dataclasses.is_dataclass(value):
             _assert_fields_match(value, getattr(ref, f.name))

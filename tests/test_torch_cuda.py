@@ -598,3 +598,68 @@ def test_upsample_bwd_kernel_refuses_what_it_does_not_take():
         kup.upsample_bilinear_bwd(dy.contiguous(memory_format=torch.channels_last)[:, 3:], (8, 16))
     with pytest.raises(ValueError, match="upsample only"):
         kup.upsample_bilinear_bwd(dy, (65, 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segformer_encoder_graphs_replay_the_eager_encoder(dtype):
+    """A bf16 train-mode forward on the card replays the encoder's CUDA
+    graphs (``models/segformer.py``; f32 stays eager and captures none): on
+    two inputs in turn (the graph's static input takes each), the same
+    tokens and, through a backward, the same parameter gradients as the
+    eager encoder; 5 ``attention.calls`` a forward at blocks 1/1/2/1.
+    Tolerance: the replay runs the kernels the eager pass runs, but cuBLAS
+    may pick another split of a product under capture: f32 to 1e-5, bf16
+    to 2e-2, of the largest value."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtda_semanticsegmentation_tpu_torch.config import ModelConfig
+    from rtda_semanticsegmentation_tpu_torch.models.factory import build_model, init_model
+    from rtda_semanticsegmentation_tpu_torch.obs import spans
+
+    cfg = ModelConfig(name="segformer", compute_dtype=dtype, mit_embed_dims=(32, 64, 160, 256),
+                      mit_depths=(1, 1, 2, 1), decoder_dim=64)
+    model = build_model(cfg, "cuda", train=True)
+    init_model(model, torch.Generator().manual_seed(0))
+    params = list(model.backbone.parameters())
+    gen = torch.Generator().manual_seed(1)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+
+    def close(a, b):
+        return (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
+
+    for i in range(2):
+        x = torch.randn((2, 64, 128, 3), generator=gen).to("cuda", getattr(torch, dtype)).permute(0, 3, 1, 2)
+        weights = None
+        outs = {}
+        # the graph first: a capture may not meet a live eager graph of the same
+        # parameters (its gradient accumulators would sit on another stream)
+        for path in ("graph", "eager"):
+            before = spans.counter("attention.calls")
+            tokens = [t for t, _ in (model.backbone(x) if path == "eager" else model._encode(x))]
+            calls = spans.counter("attention.calls") - before
+            if weights is None:
+                weights = [torch.randn(t.shape, generator=gen).to("cuda") for t in tokens]
+            loss = sum((t.float() * w).sum() for t, w in zip(tokens, weights))
+            outs[path] = ([t.detach().clone() for t in tokens], torch.autograd.grad(loss, params), calls)
+            del tokens, loss
+        torch.cuda.synchronize()
+        (te, ge, _), (tg, gg, calls) = outs["eager"], outs["graph"]
+        # the first call also captures (three warm-up passes and the capture)
+        assert len(model._graphs) == (dtype == "bfloat16") and (i == 0 or calls == 5)
+        assert all(close(a, b) for a, b in zip(tg, te))
+        assert all(close(a, b) for a, b in zip(gg, ge))
+    # two forwards of one shape before a backward (the adversarial step's
+    # two domains at one size): the second runs eager, so each backward
+    # reads its own forward's activations
+    xa, xb = (torch.randn((2, 64, 128, 3), generator=gen).to("cuda", getattr(torch, dtype)).permute(0, 3, 1, 2)
+              for _ in range(2))
+    before = spans.counter("attention.calls")
+    ta, tb = ([t for t, _ in model._encode(v)] for v in (xa, xb))
+    assert spans.counter("attention.calls") - before == 10
+    for v, tokens in ((xa, ta), (xb, tb)):
+        want = [t for t, _ in model.backbone(v)]
+        assert all(close(a, b) for a, b in zip(tokens, want))
+        got_g = torch.autograd.grad(sum((t.float() * w).sum() for t, w in zip(tokens, weights)), params)
+        want_g = torch.autograd.grad(sum((t.float() * w).sum() for t, w in zip(want, weights)), params)
+        assert all(close(a, b) for a, b in zip(got_g, want_g))
