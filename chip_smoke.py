@@ -9,7 +9,8 @@ failure:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles ``csrc/int8_conv.cu``, ``csrc/lovasz.cu``,
-   ``csrc/conv4x4s2.cu``, ``csrc/conv3x3.cu`` and ``csrc/upsample.cu`` for
+   ``csrc/conv4x4s2.cu``, ``csrc/conv3x3.cu``, ``csrc/upsample.cu`` and
+   ``csrc/batchnorm.cu`` for
    sm_90a into build/kernels/, one nvcc each, started together; prints the ptxas
    reports and, per source, the registers and spill bytes;
 3. kernels: the s8 conv kernel (K3) against its plain PyTorch version at
@@ -39,7 +40,17 @@ failure:
    in the main path's layouts, against its plain version's exact sums (f32
    weights, f64 products): bf16 within one bf16 ulp + 1e-5 * max |ref|, f32
    within 1e-6 * max |ref|, its largest error no larger than PyTorch's own
-   backward's, the same bits on a second call, no copy.
+   backward's, the same bits on a second call, no copy; train-mode
+   BatchNorm + ReLU (``kernels/batchnorm.py``) at ``BN_SHAPES`` (DeepLabV2's
+   layer3 at 256 and 1024 channels, the flagship's stem, SegFormer's
+   ``linear_fuse``, the f32 gate): its mean and invstd within f32 summation
+   order of f64 sums, its output the plain apply's bits from its mul and
+   add, the same bits on a second run, its gradients no further from f64
+   autograd than the plain version's autograd (+ one bf16 ulp of the
+   largest), no copy; each pass timed inside a forward and backward (a
+   torch.profiler trace, by kernel name, in a process of its own) beside
+   its HBM bound, the forward and backward warm and with a cold L2, and
+   DeepLabV2's 104 a step by shape.
    Times each kernel, its plain version, its bound and, for K4 and K5a-c,
    cuDNN's bf16 conv, for the resize's backward PyTorch's own (every
    kernel and cuDNN's convs replayed from a CUDA
@@ -207,10 +218,14 @@ failure:
    line add rank 0's launches.
 
 The last two lines are a JSON summary of the kernels and the result line.
+Each kernel's ``launches`` there counts its launches on the main path; the
+BatchNorm's entry counts ``calls`` instead: forward calls of the train
+steps, each with its backward, each of them 3 launches.
 ``python3 chip_smoke.py --only distributed`` runs phases 1, 2, 13 and 14
 alone (a quicker check of the distributed path), ``--only tp`` phases 1, 2
 and 14, ``--only upsample`` phases 1, 2 and the resize backward's part of
-phase 3; ``--worker`` is the form phases 13 and 14 start their ranks with.
+phase 3, ``--only batchnorm`` phases 1, 2 and the BatchNorm part of phase
+3; ``--worker`` is the form phases 13 and 14 start their ranks with.
 """
 
 from __future__ import annotations
@@ -235,6 +250,7 @@ import numpy as np
 import torch
 
 from rtda_semanticsegmentation_tpu_torch.config import AugmentConfig, ModelConfig, get_preset
+from rtda_semanticsegmentation_tpu_torch.kernels import batchnorm as kbn
 from rtda_semanticsegmentation_tpu_torch.kernels import build as kbuild
 from rtda_semanticsegmentation_tpu_torch.kernels import conv3x3 as k4
 from rtda_semanticsegmentation_tpu_torch.kernels import conv4x4 as kc
@@ -308,6 +324,19 @@ UPSAMPLE_SITES = (
     ("flagship target cx2", 512, (16, 32), (64, 128), "slice", 1, 0),
     ("DeepLabV2 logits", 19, (65, 129), (H, W), "nchw", 0, 1),
 )
+# train-mode BatchNorm + ReLU (kernels/batchnorm.py), batch 8, bf16
+# channels_last unless said: (where, C, H, W, dtype, relu) checked against
+# the plain version and timed; DeepLabV2's 104 a step by (C, H, W): how many
+BN_SHAPES = (
+    ("DeepLabV2 layer3 256", 256, 65, 129, torch.bfloat16, True),
+    ("DeepLabV2 layer3 1024", 1024, 65, 129, torch.bfloat16, False),
+    ("flagship stem", 64, 360, 640, torch.bfloat16, True),
+    ("SegFormer linear_fuse", 768, 128, 256, torch.bfloat16, True),
+    ("ARM gate f32", 512, 1, 1, torch.float32, False),
+)
+BN_DEEPLAB_STEP = ((64, 256, 512, 1), (64, 129, 257, 6), (256, 129, 257, 4), (128, 65, 129, 8), (512, 65, 129, 11),
+                   (256, 65, 129, 46), (1024, 65, 129, 24), (2048, 65, 129, 4))
+BN_EPS, BN_MOMENTUM = 1e-5, 0.9
 # plain versions swapped in for each kernel of a path: (module, wrapper)
 LOVASZ_KERNELS = ((klov, "lovasz_hist"), (klov, "lovasz_bwd"))
 CONV4_KERNELS = ((kc, "conv4x4s2p1"), (kc, "conv4x4s2p1_dw"), (kc, "conv4x4s2p1_dx"))
@@ -392,7 +421,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    libraries = (k3._library, klov._library, kc._library, k4._library, kup._library)
+    libraries = (k3._library, klov._library, kc._library, k4._library, kup._library, kbn._library)
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, started together
         for f in [pool.submit(lib) for lib in libraries]:
             f.result()
@@ -921,6 +950,250 @@ def phase_upsample_kernels() -> dict:
         print(f"kernel upsample_bilinear_bwd per {step} step: {ms:.4f} ms kernel ({bound / ms:.3f} of the bound), "
               f"{plain_ms:.4f} ms plain, {library_ms:.4f} ms PyTorch's backward, {bound:.4f} ms bound")
     return out
+
+
+def cold_ms(fn, iters: int = 10) -> float:
+    """Mean device milliseconds per call of ``fn`` with the L2 cache
+    flushed before each (a 128 MiB write): a CUDA graph of ``iters`` x (the
+    write, ``fn``) replayed, less one of the writes alone."""
+    flush = torch.empty(1 << 27, dtype=torch.uint8, device=DEV)
+
+    def flushed():
+        flush.zero_()
+        fn()
+
+    return graph_ms(flushed, iters) - graph_ms(flush.zero_, iters)
+
+
+def _bn_operands(c, h, w, dtype, seed):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = (torch.randn((BATCH, c, h, w), generator=g, device=DEV) * 1.5
+         + torch.randn((1, c, 1, 1), generator=g, device=DEV)).to(dtype).contiguous(memory_format=torch.channels_last)
+    dy = torch.randn((BATCH, c, h, w), generator=g, device=DEV).to(dtype).contiguous(memory_format=torch.channels_last)
+    weight = 1 + 0.2 * torch.randn(c, generator=g, device=DEV)
+    bias = 0.1 * torch.randn(c, generator=g, device=DEV)
+    stats = (0.1 * torch.randn(c, generator=g, device=DEV), 1 + 0.1 * torch.rand(c, generator=g, device=DEV))
+    return x, dy, weight, bias, stats
+
+
+def _bn_step(fn, x, dy, weight, bias, stats, relu):
+    """A forward and backward of ``fn`` (``kbn.batch_norm_train`` or its
+    plain version, or PyTorch's ``F.batch_norm``): (y, dx, dweight, dbias)."""
+    xg = x.detach().requires_grad_(True)
+    wg, bg = weight.detach().requires_grad_(True), bias.detach().requires_grad_(True)
+    y = fn(xg, wg, bg, *stats, relu)
+    return (y.detach(), *torch.autograd.grad(y, (xg, wg, bg), dy))
+
+
+def _bn_kernel(x, w, b, rm, rv, relu):
+    return kbn.batch_norm_train(x, w, b, rm, rv, eps=BN_EPS, momentum=BN_MOMENTUM, update=True, relu=relu)
+
+
+def _bn_plain(x, w, b, rm, rv, relu):
+    return kbn.batch_norm_train_plain(x, w, b, rm, rv, eps=BN_EPS, momentum=BN_MOMENTUM, update=True, relu=relu)
+
+
+def _bn_library(x, w, b, rm, rv, relu):
+    y = torch.nn.functional.batch_norm(x, rm, rv, w, b, training=True, momentum=1 - BN_MOMENTUM, eps=BN_EPS)
+    return torch.relu(y) if relu else y
+
+
+def _bn_f64_grads(dy, x, weight, bias, mask):
+    """f64 autograd of the forward's expressions without rounding, the
+    ReLU's mask fixed (None: no ReLU)."""
+    x64 = x.detach().double().requires_grad_(True)
+    w64, b64 = weight.double().requires_grad_(True), bias.double().requires_grad_(True)
+    mean, var, _ = kbn.statistics(x64)
+    z = kbn.apply_scale_shift(x64, *kbn.scale_shift(w64, b64, mean, var, BN_EPS))
+    return torch.autograd.grad(z, (x64, w64, b64), dy.double() if mask is None else dy.double() * mask)
+
+
+def _bn_check(where, x, dy, weight, bias, stats, relu) -> float:
+    """The gates of the BatchNorm kernels at one shape; returns dx's
+    largest error against f64."""
+    rm, rv = stats[0].clone(), stats[1].clone()
+    y, coef = kbn.batch_norm_forward(x, weight, bias, rm, rv, eps=BN_EPS, momentum=BN_MOMENTUM, update=True,
+                                     relu=relu)
+    y2, coef2 = kbn.batch_norm_forward(x, weight, bias, *(t.clone() for t in stats), eps=BN_EPS,
+                                       momentum=BN_MOMENTUM, update=True, relu=relu)
+    x64 = x.double()
+    mean64 = x64.mean(dim=(0, 2, 3))
+    invstd64 = torch.rsqrt(x64.square().mean(dim=(0, 2, 3)) - mean64.square() + BN_EPS)
+    scale = x64.abs().mean().item()
+    mean_err = (coef[0].double() - mean64).abs().max().item() / scale
+    invstd_err = ((coef[1].double() - invstd64) / invstd64).abs().max().item()
+    plain_y = kbn.apply_scale_shift(x, coef[2], coef[3])
+    plain_y = torch.relu(plain_y) if relu else plain_y
+    same_y = torch.equal(y, plain_y)
+    kern = _bn_step(_bn_kernel, x, dy, weight, bias, stats, relu)
+    again = _bn_step(_bn_kernel, x, dy, weight, bias, stats, relu)
+    plain = _bn_step(_bn_plain, x, dy, weight, bias, stats, relu)
+    repeat = torch.equal(y, y2) and torch.equal(coef, coef2) and all(torch.equal(a, b) for a, b in zip(kern, again))
+    errs = {}
+    for path, run in (("kernel", kern), ("plain", plain)):
+        want = _bn_f64_grads(dy, x, weight, bias, (run[0] > 0) if relu else None)
+        errs[path] = [((g.double() - w_).abs().max().item(), w_.abs().max().item()) for g, w_ in zip(run[1:], want)]
+    torch.cuda.synchronize()
+    slack = [2.0 ** (math.frexp(top)[1] - 9) if x.dtype == torch.bfloat16 else 1e-5 * top
+             for _, top in errs["kernel"]]
+    grads_ok = all(k[0] <= p[0] + sl for k, p, sl in zip(errs["kernel"], errs["plain"], slack))
+    print(f"kernel batchnorm {where} {tuple(x.shape)} {x.dtype} relu={relu}: mean error {mean_err:.2e} of E|x|, "
+          f"invstd {invstd_err:.2e} relative; y the plain apply's bits: {same_y}; the same bits on a second run: "
+          f"{repeat}; largest errors against f64 (dx, dweight, dbias) kernel "
+          + ", ".join(f"{e:.3e}" for e, _ in errs["kernel"]) + " / plain autograd "
+          + ", ".join(f"{e:.3e}" for e, _ in errs["plain"]) + " (allowed above plain " +
+          ", ".join(f"{sl:.1e}" for sl in slack) + ")")
+    if mean_err > 1e-5 or invstd_err > 2e-5 or not (same_y and repeat and grads_ok):
+        raise AssertionError(f"the BatchNorm kernels ({where}) fail their gates")
+    return errs["kernel"][0][0]
+
+
+def _device_us(event) -> float:
+    return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)
+
+
+# the BatchNorm kernels' passes, in the order a forward and backward runs them
+BN_PASSES = ("stats", "finish_stats", "apply", "grad_sums", "finish_grad", "dx")
+
+
+def _bn_pass(name: str):
+    """The pass of the BatchNorm kernels a trace's kernel ``name`` is
+    (``BN_PASSES``), None for any other kernel."""
+    m = re.search(r"batchnorm_(sums|finish_stats|finish_grad|map)\b", name)
+    if m is None:
+        return None
+    if m.group(1).startswith("finish"):
+        return m.group(1)
+    grad = re.search(r"batchnorm_\w+<[^>]*true>", name) is not None
+    return {"sums": ("stats", "grad_sums"), "map": ("apply", "dx")}[m.group(1)][grad]
+
+
+def _bn_pass_ms(step, iters: int = 10) -> dict:
+    """Device ms per call of each pass (``BN_PASSES``) that ``step`` (a
+    forward and backward) runs, from a torch.profiler trace of ``iters``
+    steps grouped by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(BN_PASSES, 0.0)
+    for e in prof.key_averages():
+        which = _bn_pass(e.key) if e.device_type == DeviceType.CUDA else None
+        if which is not None:
+            out[which] += _device_us(e) / 1e3 / iters
+    if min(out.values()) <= 0:
+        raise AssertionError(f"the trace shows no device time for a pass of the BatchNorm kernels: {out}")
+    return out
+
+
+def worker_bn_passes(out: str) -> None:
+    """Phase 3's per-pass BatchNorm times (``_bn_pass_ms``) at each of
+    ``BN_SHAPES``, written to ``out``: in a process of their own, so that
+    no profiler session runs in the process whose launches the phases
+    time."""
+    times = {}
+    for i, (where, c, h, w, dtype, relu) in enumerate(BN_SHAPES):
+        x, dy, weight, bias, stats = _bn_operands(c, h, w, dtype, 600 + i)
+        times[where] = _bn_pass_ms(lambda: _bn_step(_bn_kernel, x, dy, weight, bias, stats, relu))
+    with open(out, "w") as f:
+        json.dump(times, f)
+
+
+def _bn_times(x, dy, weight, bias, stats, relu) -> dict:
+    """The forward and the backward (graph replay, and with a cold L2), the
+    plain version's and PyTorch's ``F.batch_norm`` (+ ReLU) forward and
+    backward, ms; the host's us a forward and backward, the kernels' and
+    the plain version's."""
+    rm, rv = stats[0].clone(), stats[1].clone()
+    _, coef = kbn.batch_norm_forward(x, weight, bias, rm, rv, eps=BN_EPS, momentum=BN_MOMENTUM, update=True,
+                                     relu=relu)
+    whole = {
+        "forward": functools.partial(kbn.batch_norm_forward, x, weight, bias, rm, rv, eps=BN_EPS,
+                                     momentum=BN_MOMENTUM, update=True, relu=relu),
+        "backward": functools.partial(kbn.batch_norm_backward, dy, x, weight, coef, relu=relu),
+    }
+    out = {}
+    for name, fn in whole.items():
+        out[name] = graph_ms(fn)
+        out[name + "_cold"] = cold_ms(fn)
+    out["host_us"] = host_us(lambda: _bn_step(_bn_kernel, x, dy, weight, bias, stats, relu))
+    out["plain_host_us"] = host_us(lambda: _bn_step(_bn_plain, x, dy, weight, bias, stats, relu))
+    for name, fn in (("kernel_step", _bn_kernel), ("plain_step", _bn_plain), ("library_step", _bn_library)):
+        out[name] = cuda_ms(lambda: _bn_step(fn, x, dy, weight, bias, (rm, rv), relu), 5, 1)
+    return out
+
+
+def phase_batchnorm_kernels() -> dict:
+    """Train-mode BatchNorm + ReLU (``kernels/batchnorm.py``) at the main
+    path's shapes (``BN_SHAPES``), bf16 channels_last and the f32 gate:
+    the mean within 1e-5 of E|x| and invstd within 2e-5 relative of f64
+    sums; y the plain apply's bits from the kernels' mul and add; the same
+    bits on a second run; dx, dweight and dbias no further from f64
+    autograd than autograd of the plain version, plus one bf16 ulp of the
+    largest gradient (1e-5 of it in f32); no copy. Each pass timed inside
+    a forward and backward (``worker_bn_passes``) beside its HBM bound (the
+    statistics read x: 2 bytes an element in bf16; the apply reads x and
+    writes y: 4; the gradient's sums read dy and x: 4; dx reads dy and x
+    and writes dx: 6); the forward and backward (graph replay, and with a
+    cold L2) beside the plain version's and PyTorch's
+    ``F.batch_norm`` (the yardstick; the port never calls it). Then
+    DeepLabV2's 104 a step (``BN_DEEPLAB_STEP``), timed by shape. Returns,
+    for the kernels line, the sums over one DeepLabV2 step."""
+    _zero_counters("batchnorm.copies")
+    max_err = 0.0
+    for i, (where, c, h, w, dtype, relu) in enumerate(BN_SHAPES):
+        ops = _bn_operands(c, h, w, dtype, 600 + i)
+        x = ops[0]
+        max_err = max(max_err, _bn_check(where, *ops, relu))
+        t = _bn_times(*ops, relu)
+        e = x.element_size()
+        bound = 8 * e * x.numel() / PEAK_BYTES * 1e3
+        print(f"kernel batchnorm {where}: forward {t['forward']:.4f} + backward {t['backward']:.4f} ms "
+              f"(cold {t['forward_cold']:.4f} + {t['backward_cold']:.4f}) against the bound {bound:.4f} ms "
+              f"({8 * e} bytes an element); forward and backward launched: kernels {t['kernel_step']:.4f} ms, "
+              f"plain {t['plain_step']:.4f} ms, F.batch_norm {t['library_step']:.4f} ms; host {t['host_us']:.1f} us "
+              f"a forward and backward (plain {t['plain_host_us']:.1f} us); plans {kbn.plan_of(x, False)} and "
+              f"{kbn.plan_of(x, True)}")
+        del ops, x
+    if kbn.copies:
+        raise AssertionError(f"the BatchNorm kernels copied {kbn.copies} operands in the main path's layouts")
+    out = os.path.join("build", "chip_smoke_bn_passes.json")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", "bn_passes", out],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the BatchNorm passes' worker failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    with open(out) as f:
+        passes = json.load(f)
+    for where, c, h, w, dtype, _ in BN_SHAPES:
+        t, n, e = passes[where], BATCH * c * h * w, torch.finfo(dtype).bits // 8
+        bounds = {"stats": e * n, "apply": 2 * e * n, "grad_sums": 2 * e * n, "dx": 3 * e * n}
+        print(f"kernel batchnorm {where}, passes in a forward and backward (a profiler trace): "
+              + ", ".join(f"{p} {t[p]:.4f} ms ({bounds[p] / PEAK_BYTES * 1e3 / t[p]:.2f} of its bound)"
+                          for p in bounds)
+              + f", finishing passes {t['finish_stats']:.4f} + {t['finish_grad']:.4f} ms")
+    step = {"ms": 0.0, "cold_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for c, h, w, count in BN_DEEPLAB_STEP:
+        ops = _bn_operands(c, h, w, torch.bfloat16, c + h)
+        t = _bn_times(*ops, True)
+        bound = 16 * ops[0].numel() / PEAK_BYTES * 1e3
+        print(f"kernel batchnorm DeepLabV2 ({BATCH}, {c}, {h}, {w}) x{count}: forward + backward "
+              f"{t['forward'] + t['backward']:.4f} ms (cold {t['forward_cold'] + t['backward_cold']:.4f}), "
+              f"plain {t['plain_step']:.4f}, F.batch_norm {t['library_step']:.4f}, bound {bound:.4f}")
+        for key, v in (("ms", t["forward"] + t["backward"]), ("cold_ms", t["forward_cold"] + t["backward_cold"]),
+                       ("plain_ms", t["plain_step"]), ("library_ms", t["library_step"]), ("bound_ms", bound)):
+            step[key] += count * v
+        del ops
+    print(f"kernel batchnorm per DeepLabV2 step (104 calls): {step['ms']:.3f} ms kernels "
+          f"({step['bound_ms'] / step['ms']:.2f} of the bound; cold {step['cold_ms']:.3f}), plain "
+          f"{step['plain_ms']:.3f} ms, F.batch_norm {step['library_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    return {"ms": step["ms"], "plain_ms": step["plain_ms"], "library_ms": step["library_ms"],
+            "bound_ms": step["bound_ms"], "max_abs_err": max_err, "bound_by": "bytes"}
 
 
 def _frames(seed: int) -> torch.Tensor:
@@ -1516,6 +1789,7 @@ def phase_train() -> dict:
     torch.cuda.reset_peak_memory_stats()
     # the main path: the kernels' launches during the train steps only
     _zero_counters("lovasz.hist_launches", "lovasz.bwd_launches", "upsample.bwd_launches", "upsample.copies")
+    _zero_counters("batchnorm.fwd_calls", "batchnorm.bwd_calls", "batchnorm.copies")
     metrics, ms = _timed_steps(state, step, batch, gen, TRAIN_STEPS)
     launches = {"lovasz_hist": klov.hist_launches, "lovasz_bwd": klov.bwd_launches,
                 "upsample_bilinear_bwd": kup.bwd_launches}
@@ -1535,7 +1809,13 @@ def phase_train() -> dict:
                              f"got {launches}")
     if kup.copies:
         raise AssertionError(f"the resize's backward copied {kup.copies} gradients on the train path")
-    return launches
+    bn = (kbn.fwd_calls, kbn.bwd_calls, kbn.copies)
+    print(f"train: the BatchNorm kernels {bn[0]} forward and {bn[1]} backward calls and {bn[2]} copies over "
+          f"{TRAIN_STEPS} steps")
+    if bn[2] or bn[0] != bn[1] or not bn[0] or bn[0] % TRAIN_STEPS:
+        raise AssertionError(f"expected as many BatchNorm forward as backward calls, the same each step, and no "
+                             f"copy, got {bn}")
+    return {**launches, "batchnorm": bn[0]}
 
 
 def phase_adversarial() -> dict:
@@ -1563,8 +1843,15 @@ def phase_adversarial() -> dict:
     # the main path: the kernels' launches during the adversarial steps only
     _zero_counters("lovasz.hist_launches", "lovasz.bwd_launches", "upsample.bwd_launches", "upsample.copies")
     _zero_counters("conv4x4.fwd_launches", "conv4x4.dw_launches", "conv4x4.dx_launches", "conv4x4.copies")
+    _zero_counters("batchnorm.fwd_calls", "batchnorm.bwd_calls", "batchnorm.copies")
     with _upsample_census() as census:
         metrics, ms = _timed_steps(state, step, batch, gen, TRAIN_STEPS)
+    bn = (kbn.fwd_calls, kbn.bwd_calls, kbn.copies)
+    print(f"adversarial: the BatchNorm kernels {bn[0]} forward and {bn[1]} backward calls and {bn[2]} copies over "
+          f"{TRAIN_STEPS} steps")
+    if bn[2] or bn[0] != bn[1] or not bn[0] or bn[0] % TRAIN_STEPS:
+        raise AssertionError(f"expected as many BatchNorm forward as backward calls, the same each step, and no "
+                             f"copy, got {bn}")
     k5_copies, upsample_copies = kc.copies, kup.copies
     launches = {"conv4x4s2p1": kc.fwd_launches, "conv4x4s2p1_dw": kc.dw_launches,
                 "conv4x4s2p1_dx": kc.dx_launches, "lovasz_hist": klov.hist_launches,
@@ -1603,7 +1890,7 @@ def phase_adversarial() -> dict:
             "upsample_bilinear_bwd": 6}
     if launches != {k: n * TRAIN_STEPS for k, n in want.items()}:
         raise AssertionError(f"expected per step {want} launches, got {launches} over {TRAIN_STEPS} steps")
-    return launches, ms_default
+    return {**launches, "batchnorm": bn[0]}, ms_default
 
 
 def _running_stats(model) -> dict:
@@ -1614,7 +1901,7 @@ def _bn_affines(model) -> dict:
     return {n: p.detach().clone() for n, p in model.named_parameters() if is_bn_affine(n)}
 
 
-def phase_deeplab_train() -> int:
+def phase_deeplab_train() -> tuple:
     """The ``deeplabv2_cityscapes`` step (DeepLabV2, bf16, SGD, batch 8 at
     512x1024, the BatchNorm affines frozen): an f32 step at 2x64x96 on the
     card against the CPU's; from one state a step with ``train.remat`` and
@@ -1622,9 +1909,10 @@ def phase_deeplab_train() -> int:
     step's peak memory); then 8 steps on one repeated batch from the init:
     losses finite and falling, every BatchNorm affine bit-identical to its
     init, every running statistic moved, one launch of the resize's backward
-    a step and no copy. BiSeNet-R101's vanilla step at the same size, once
-    after one warm-up step. Returns the resize backward's launches in the 8
-    steps."""
+    a step and no copy, 104 forward and backward calls of the BatchNorm
+    kernels a step and no copy. BiSeNet-R101's vanilla step at the same
+    size, once after one warm-up step. Returns the resize backward's
+    launches and the BatchNorm kernels' forward calls in the 8 steps."""
     cfg = get_preset("deeplabv2_cityscapes")
     h, w = cfg.train_size
     b = cfg.train.batch_size
@@ -1666,8 +1954,15 @@ def phase_deeplab_train() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counters("upsample.bwd_launches", "upsample.copies")
+    _zero_counters("batchnorm.fwd_calls", "batchnorm.bwd_calls", "batchnorm.copies")
     with _upsample_census() as census:
         metrics, ms = _timed_steps(state, step, batch, torch.Generator(device=DEV).manual_seed(7), TRAIN_STEPS)
+    bn = (kbn.fwd_calls, kbn.bwd_calls, kbn.copies)
+    print(f"deeplabv2 train: the BatchNorm kernels {bn[0]} forward and {bn[1]} backward calls and {bn[2]} copies "
+          f"over {TRAIN_STEPS} steps")
+    if bn != (104 * TRAIN_STEPS, 104 * TRAIN_STEPS, 0):
+        raise AssertionError(f"expected 104 BatchNorm forward and backward calls a DeepLabV2 step and no copy, "
+                             f"got {bn}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     resizes = (kup.bwd_launches, kup.copies)
     print(f"deeplabv2 train: the resize's backward {resizes[0]} launches and {resizes[1]} copies over "
@@ -1721,7 +2016,7 @@ def phase_deeplab_train() -> int:
     if not all(np.isfinite(losses)) or losses[0] != losses[1]:
         raise AssertionError(f"BiSeNet-R101's step: losses {losses}, not finite or not the same from one state")
     del state, step, batch, saved
-    return resizes[0]
+    return resizes[0], bn[0]
 
 
 LOOP_DIR = os.path.join("build", "chip_smoke_loop")
@@ -1974,10 +2269,26 @@ def worker_cli(out: str, argv: list) -> None:
                        "step_ms": trainer.timings["step_ms"]}, f)
 
 
+BN_COUNTERS = ("batchnorm.fwd_calls", "batchnorm.bwd_calls", "batchnorm.copies")
+
+
+def _bn_counts() -> tuple:
+    """The BatchNorm kernels' (forward calls, backward calls, copies)."""
+    return kbn.fwd_calls, kbn.bwd_calls, kbn.copies
+
+
+def _ranks_counts(mesh, counts) -> list:
+    """Every rank's ``counts`` (a tuple of ints), in rank order."""
+    table = torch.zeros(mesh.world, len(counts), dtype=torch.int64, device=DEV)
+    table[mesh.rank] = torch.tensor(counts, device=DEV)
+    torch.distributed.all_reduce(table)
+    return table.cpu().tolist()
+
+
 def _dist_flagship(mesh=None):
     """The flagship step of phase 13b from its seeded init, on the global
     batch's rows of ``mesh``'s rank (all of them without a mesh); its
-    metrics."""
+    metrics and the BatchNorm kernels' counts in the step."""
     # imported here: profile_conv.py --root loads this module over older checkouts
     from rtda_semanticsegmentation_tpu_torch.models.layers import sync_batch_norm
 
@@ -1989,21 +2300,24 @@ def _dist_flagship(mesh=None):
         sync_batch_norm(state.model, mesh)
         local = mesh.check_batch(cfg.train.batch_size)
         batch = {k: v[mesh.rank * local:(mesh.rank + 1) * local].contiguous() for k, v in batch.items()}
+    _zero_counters(*BN_COUNTERS)
     _, m = step(state, batch, torch.Generator(device=DEV).manual_seed(5))
-    return {k: float(v) for k, v in m.items()}
+    return {k: float(v) for k, v in m.items()}, _bn_counts()
 
 
 def worker_dp(out: str) -> None:
     """A rank of phases 13b and 13c: gloo on cuda:0, the flagship step on
     its rows, then K1's integer histogram of its rows of the flagship's
-    source map summed over the ranks; rank 0 writes both to ``out``."""
+    source map summed over the ranks; rank 0 writes both and every rank's
+    BatchNorm counts to ``out``."""
     from rtda_semanticsegmentation_tpu_torch.parallel import create_mesh, ensure_distributed
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     ensure_distributed(device=DEV, backend="gloo")
     mesh = create_mesh(device=DEV)
-    metrics = _dist_flagship(mesh)
+    metrics, bn = _dist_flagship(mesh)
+    bn = _ranks_counts(mesh, bn)
     probas, labels = _lovasz_case("spread", SOURCE_HW[0] * SOURCE_HW[1])
     local = mesh.check_batch(BATCH)
     rows = slice(mesh.rank * local, (mesh.rank + 1) * local)
@@ -2012,7 +2326,7 @@ def worker_dp(out: str) -> None:
     torch.cuda.synchronize()
     if mesh.is_main:
         torch.save({"metrics": metrics, "world": mesh.world, "backend": torch.distributed.get_backend(),
-                    "hist": hist.cpu()}, out)
+                    "hist": hist.cpu(), "batchnorm": bn}, out)
     torch.distributed.destroy_process_group()
 
 
@@ -2064,7 +2378,7 @@ def phase_distributed(card: str) -> dict:
     t0 = time.perf_counter()
     _torchrun(2, "--worker", "dp", out)
     ranks = torch.load(out, weights_only=False)
-    one = _dist_flagship()
+    one, one_bn = _dist_flagship()
     tols = {"loss": 1e-4, "loss_ce": 1e-4, "loss_lovasz": 1e-4, "loss_d": 1e-4, "loss_adv_g": 1e-4,
             "grad_norm": 1e-2, "grad_norm_d": 1e-2}
     errs = {k: _rel(ranks["metrics"][k], one[k]) for k in tols}
@@ -2073,6 +2387,11 @@ def phase_distributed(card: str) -> dict:
           + ", ".join(f"{k} {ranks['metrics'][k]:.6f} vs {one[k]:.6f} (rel {errs[k]:.1e})" for k in tols))
     if (ranks["backend"], ranks["world"]) != ("gloo", 2) or any(errs[k] > tol for k, tol in tols.items()):
         raise AssertionError("the 2-rank flagship step disagrees with the single-process step")
+    print(f"distributed (b): the BatchNorm kernels' (forward calls, backward calls, copies) in the step, per rank "
+          f"{ranks['batchnorm']}, in the single process {one_bn}")
+    if not one_bn[0] or one_bn[2] or any(tuple(c) != (one_bn[0], one_bn[0], 0) for c in ranks["batchnorm"]):
+        raise AssertionError("expected each rank to call the BatchNorm kernels as often as the single process, "
+                             "forward and backward, with no copy")
     probas, labels = _lovasz_case("spread", SOURCE_HW[0] * SOURCE_HW[1])
     whole = klov.lovasz_hist(probas, labels, BINS, 255)
     saved = klov.MAX_PIXELS
@@ -2135,9 +2454,10 @@ def _state_bytes(state) -> int:
 def _tp_flagship(mesh=None, dtype: str = "bfloat16", timed: int = TP_STEPS) -> dict:
     """The flagship step at full shapes from its seeded init, computing in
     ``dtype`` (the rows of ``mesh``'s data index, its wide kernels sharded;
-    all of it without a mesh): the first step's metrics and K1/K2
-    launches, then the ms/step of ``timed`` more on the device's timeline,
-    the state's bytes and the state."""
+    all of it without a mesh): the first step's metrics, then the ms/step
+    of ``timed`` more on the device's timeline, K1/K2's launches and the
+    BatchNorm kernels' counts in all the steps, the state's bytes and the
+    state."""
     from rtda_semanticsegmentation_tpu_torch.models.layers import sync_batch_norm
     from rtda_semanticsegmentation_tpu_torch.parallel import shard_state
 
@@ -2152,7 +2472,7 @@ def _tp_flagship(mesh=None, dtype: str = "bfloat16", timed: int = TP_STEPS) -> d
         batch = {k: v[mesh.data_rank * local:(mesh.data_rank + 1) * local].contiguous() for k, v in batch.items()}
     step = make_train_step(cfg, state.schedule, state.d_schedule, mesh=mesh)
     gen = torch.Generator(device=DEV).manual_seed(5)
-    _zero_counters("lovasz.hist_launches", "lovasz.bwd_launches")
+    _zero_counters("lovasz.hist_launches", "lovasz.bwd_launches", *BN_COUNTERS)
     _, m = step(state, batch, gen)
     metrics = {k: float(v) for k, v in m.items()}
     if mesh is not None:
@@ -2163,7 +2483,7 @@ def _tp_flagship(mesh=None, dtype: str = "bfloat16", timed: int = TP_STEPS) -> d
         step(state, batch, gen)
     end.record()
     torch.cuda.synchronize()
-    return {"metrics": metrics, "launches": (klov.hist_launches, klov.bwd_launches),
+    return {"metrics": metrics, "launches": (klov.hist_launches, klov.bwd_launches), "batchnorm": _bn_counts(),
             "ms": start.elapsed_time(end) / max(timed, 1), "bytes": _state_bytes(state), "state": state}
 
 
@@ -2187,8 +2507,8 @@ def worker_tp(out: str, model: int) -> None:
     model), the flagship step sharded (``_tp_flagship``), first one step in
     f32 (TF32 off), then the bf16 steps; then, over the ranks, the spread
     of the replicated parameters and of the BatchNorm running statistics
-    within each model group and every rank's K1/K2 launches of the bf16
-    steps. Rank 0 writes them to ``out``."""
+    within each model group and every rank's K1/K2 launches and BatchNorm
+    counts of the bf16 steps. Rank 0 writes them to ``out``."""
     import torch.distributed as dist
 
     from rtda_semanticsegmentation_tpu_torch.config import MeshConfig
@@ -2211,9 +2531,11 @@ def worker_tp(out: str, model: int) -> None:
     launches = torch.zeros(mesh.world, 2, dtype=torch.int64, device=DEV)
     launches[mesh.rank] = torch.tensor(got["launches"], device=DEV)
     dist.all_reduce(launches)
+    bn = _ranks_counts(mesh, got["batchnorm"])
     if mesh.is_main:
         torch.save({"metrics": got["metrics"], "f32": f32, "ms": got["ms"], "bytes": got["bytes"], "spread": spread,
-                    "launches": launches.cpu().tolist(), "layout": (mesh.data_size, mesh.model_size),
+                    "launches": launches.cpu().tolist(), "batchnorm": bn,
+                    "layout": (mesh.data_size, mesh.model_size),
                     "backend": dist.get_backend(),
                     "sharded": (len(tp.sharded_convs(state.model)), len(tp.sharded_convs(state.discriminator)))},
                    out)
@@ -2228,7 +2550,7 @@ def phase_tp(card: str) -> dict:
     one_f32 = _tp_flagship(dtype="float32", timed=0)["metrics"]
     torch.cuda.empty_cache()
     one = _tp_flagship()
-    one_ms, one_bytes = one["ms"], one["bytes"]
+    one_ms, one_bytes, one_bn = one["ms"], one["bytes"], one["batchnorm"]
     whole = one["metrics"]
     del one
     torch.cuda.empty_cache()
@@ -2273,6 +2595,11 @@ def phase_tp(card: str) -> dict:
             raise AssertionError(f"{what}: the tensor-parallel step disagrees with the single-process step")
         if any(tuple(c) != (1 + TP_STEPS, 1 + TP_STEPS) for c in got["launches"]):
             raise AssertionError(f"{what}: expected one K1 and one K2 launch per step and rank, got {got['launches']}")
+        print(f"{what}: the BatchNorm kernels' (forward calls, backward calls, copies) over {1 + TP_STEPS} steps "
+              f"per rank {got['batchnorm']}, in the single process {one_bn}")
+        if not one_bn[0] or one_bn[2] or any(tuple(c) != (one_bn[0], one_bn[0], 0) for c in got["batchnorm"]):
+            raise AssertionError(f"{what}: expected each rank to call the BatchNorm kernels as often as the single "
+                                 f"process, forward and backward, with no copy")
         if got["spread"][0] != 0.0 or got["sharded"] != (13, 2):
             raise AssertionError(f"{what}: replicated parameters differ in a model group ({got['spread'][0]}) "
                                  f"or sharded convs {got['sharded']} are not (13, 2)")
@@ -2297,16 +2624,19 @@ def main() -> None:
         kind, out = sys.argv[2], sys.argv[3]
         if kind == "tp":
             return worker_tp(out, int(sys.argv[4]))
+        if kind == "bn_passes":
+            return worker_bn_passes(out)
         return worker_cli(out, sys.argv[4:]) if kind == "cli" else worker_dp(out)
-    if sys.argv[1:] not in ([], ["--only", "distributed"], ["--only", "tp"], ["--only", "upsample"]):
-        raise SystemExit(f"unknown arguments {sys.argv[1:]}: none, --only distributed, --only tp or "
-                         f"--only upsample")
+    only = {"upsample": phase_upsample_kernels, "batchnorm": phase_batchnorm_kernels}
+    if sys.argv[1:] not in ([], ["--only", "distributed"], ["--only", "tp"], *(["--only", k] for k in only)):
+        raise SystemExit(f"unknown arguments {sys.argv[1:]}: none, --only distributed, --only tp, "
+                         f"--only upsample or --only batchnorm")
     t0 = time.perf_counter()
     card = phase_device()
     phase_build()
-    if sys.argv[1:] == ["--only", "upsample"]:
-        phase_upsample_kernels()
-        print(f"chip_smoke.py: the upsample phase passed in {time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:2] == ["--only"] and sys.argv[2] in only:
+        only[sys.argv[2]]()
+        print(f"chip_smoke.py: the {sys.argv[2]} phase passed in {time.perf_counter() - t0:.1f} s")
         return
     if sys.argv[1:]:
         if sys.argv[2] == "distributed":
@@ -2320,6 +2650,7 @@ def main() -> None:
     conv4_times = phase_conv4_kernels()
     conv3_times = phase_conv3_kernels()
     upsample_times = phase_upsample_kernels()
+    batchnorm_times = phase_batchnorm_kernels()
     k3_launches, k4_launches = phase_slice()
     artifact_k3, artifact_k4 = phase_artifact(card)
     k3_launches += artifact_k3
@@ -2330,7 +2661,9 @@ def main() -> None:
     train_launches = phase_train()
     adversarial_launches, isolated_ms = phase_adversarial()
     upsample_launches = train_launches.pop("upsample_bilinear_bwd") + adversarial_launches["upsample_bilinear_bwd"]
-    upsample_launches += phase_deeplab_train()
+    deeplab_upsample, batchnorm_calls = phase_deeplab_train()
+    upsample_launches += deeplab_upsample
+    batchnorm_calls += train_launches.pop("batchnorm") + adversarial_launches["batchnorm"]
     k3_launches += phase_loop(isolated_ms)
     k3_launches += phase_deeplab_loop()
     dist_launches = phase_distributed(card)
@@ -2356,6 +2689,9 @@ def main() -> None:
     }, {
         "name": "upsample_bilinear_bwd", "route": "cuda", "source": f"{pkg}/upsample.cu", "replaces": None,
         "launches": upsample_launches, **upsample_times,
+    }, {
+        "name": "batchnorm", "route": "cuda", "source": f"{pkg}/batchnorm.cu", "replaces": None,
+        "calls": batchnorm_calls, **batchnorm_times,
     }]
     print(f"chip_smoke.py: all phases passed in {time.perf_counter() - t0:.1f} s, the build included")
     print(json.dumps({"kernels": kernels}))

@@ -36,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from ..kernels import batchnorm as _bn
 from ..kernels import conv3x3 as _k4
 from ..kernels import upsample as _upsample
 from ..kernels.int8_conv import kmajor_weights
@@ -233,13 +234,13 @@ class QuantConv(Conv):
 
 def fold_batch_norm(scale, bias, mean, var, eps: float = 1e-5):
     """Eval BatchNorm as a per-channel f32 ``(scale, shift)`` pair."""
-    inv = scale * torch.rsqrt(var + eps)
-    return inv, bias - mean * inv
+    return _bn.scale_shift(scale, bias, mean, var, eps)
 
 
 class FoldableBatchNorm(nn.Module):
     """BatchNorm applied as a per-channel ``x * mul + add`` in the input
-    dtype, with ``mul`` and ``add`` computed in at least f32.
+    dtype, with ``mul`` and ``add`` computed in at least f32, and the ReLU
+    after it where the caller asks (``relu``: a ConvBN's).
 
     - Eval: from the running statistics and the affine parameters.
     - Train (``self.training``), as the JAX ``FoldableBatchNorm`` and not as
@@ -252,11 +253,12 @@ class FoldableBatchNorm(nn.Module):
       statistics stay as they are.
     - Data parallel (``self.mesh``, a ``parallel.MeshContext`` of more than
       one data index, set by :func:`sync_batch_norm`): the statistics of the
-      global batch, as JAX's SPMD BatchNorm computes them: one autograd sum
-      over the data group of ``[Σx, Σx², n]`` in at least f32, ``n`` the
-      global count in the unbiased factor too. The ranks of a model group
-      hold the same rows and every channel (a sharded conv gathers its
-      output first), so they take no part in the sum.
+      global batch, as JAX's SPMD BatchNorm computes them: ``[Σx, Σx², n]``
+      summed over the data group, ``n`` the global count in the unbiased
+      factor too.
+
+    In train mode ``kernels/batchnorm.py`` runs it: the CUDA kernels on the
+    card, the plain expressions on the CPU.
     """
 
     def __init__(self, ch, eps=1e-5, momentum=0.9):
@@ -269,37 +271,15 @@ class FoldableBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
 
-    def forward(self, x):
-        if not self.training:
-            mul, add = fold_batch_norm(
-                self.weight, self.bias, self.running_mean, self.running_var, self.eps
-            )
-        else:
-            xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            n = x.numel() // x.shape[1]
-            if self.mesh is not None and self.mesh.data_size > 1:
-                c = x.shape[1]
-                count = torch.full((1,), float(n), dtype=xf.dtype, device=x.device)
-                sums = self.mesh.sum(torch.cat([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)), count]))
-                n = sums[2 * c]
-                mean = sums[:c] / n
-                var = sums[c: 2 * c] / n - mean.square()
-            else:
-                mean = xf.mean(dim=(0, 2, 3))
-                var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
-            if self.update_running_stats:
-                self._update_running_stats(mean, var, n)
-            mul = self.weight * torch.rsqrt(var + self.eps)
-            add = self.bias - mean * mul
-        return x * mul.to(x.dtype).view(1, -1, 1, 1) + add.to(x.dtype).view(1, -1, 1, 1)
-
-    @torch.no_grad()
-    def _update_running_stats(self, mean, var, n) -> None:
-        """``n``: the count, an int or (data parallel) a device scalar."""
-        m = self.momentum
-        unbiased = n / max(n - 1, 1) if isinstance(n, int) else n / (n - 1).clamp_min(1)
-        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-        self.running_var.copy_(m * self.running_var + (1 - m) * var * unbiased)
+    def forward(self, x, relu: bool = False):
+        if self.training:
+            mesh = self.mesh if self.mesh is not None and self.mesh.data_size > 1 else None
+            return _bn.batch_norm_train(x, self.weight, self.bias, self.running_mean, self.running_var,
+                                        eps=self.eps, momentum=self.momentum,
+                                        update=self.update_running_stats, relu=relu, mesh=mesh)
+        mul, add = fold_batch_norm(self.weight, self.bias, self.running_mean, self.running_var, self.eps)
+        y = _bn.apply_scale_shift(x, mul, add)
+        return F.relu(y) if relu else y
 
 
 def sync_batch_norm(model: nn.Module, mesh) -> nn.Module:
@@ -390,10 +370,7 @@ class ConvBN(nn.Module):
             return self.conv(x)  # BN and ReLU run in the kernel's epilogue
         if mode == "int8":
             return self.conv(x, self.bn)
-        x = self.bn(self.conv(x))
-        if self.use_relu:
-            x = F.relu(x)
-        return x.to(self.dtype)
+        return self.bn(self.conv(x), relu=self.use_relu).to(self.dtype)
 
 
 def fold_kernel_operands(model: nn.Module) -> None:

@@ -61,8 +61,10 @@ class _AllSum(torch.autograd.Function):
 
 
 def _sum_at_least_f32(x: torch.Tensor, group) -> torch.Tensor:
-    """``x`` summed over ``group`` in at least f32, in ``x``'s dtype."""
-    acc = x.to(torch.promote_types(x.dtype, torch.float32), memory_format=torch.contiguous_format, copy=True)
+    """``x`` summed over ``group`` in at least f32, in ``x``'s dtype and (a
+    dense ``x``) its memory format: a ``channels_last`` gradient stays one
+    for the BatchNorm kernels and convs before it."""
+    acc = x.to(torch.promote_types(x.dtype, torch.float32), memory_format=torch.preserve_format, copy=True)
     dist.all_reduce(acc, group=group)
     return acc.to(x.dtype)
 
@@ -85,10 +87,14 @@ class _InputCopy(torch.autograd.Function):
 def _gather(x: torch.Tensor, dim: int, lo: int, full: int, group) -> torch.Tensor:
     """``x`` as indices ``[lo, lo + x.shape[dim])`` of a ``full``-wide dim
     ``dim``: written into a zero-filled buffer that is summed over
-    ``group`` (exact: every other rank's term there is zero)."""
+    ``group`` (exact: every other rank's term there is zero). The buffer
+    keeps a ``channels_last`` ``x``'s memory format, which the convs and
+    BatchNorm kernels after a sharded conv read as it is."""
     shape = list(x.shape)
     shape[dim] = full
-    buf = x.new_zeros(shape)
+    channels_last = x.dim() == 4 and not x.is_contiguous() and x.is_contiguous(memory_format=torch.channels_last)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    buf = torch.empty(shape, dtype=x.dtype, device=x.device, memory_format=fmt).zero_()
     buf.narrow(dim, lo, x.shape[dim]).copy_(x)
     dist.all_reduce(buf, group=group)
     return buf

@@ -6,10 +6,12 @@ PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerance: none, except the Lovász histogram's f32 error sums, the
-4x4/s2 and 3x3 conv kernels' f32 sums and the resize backward's f32 sums,
-which add in another order (stated at the tests); the kernels round like
-their plain versions.
+4x4/s2 and 3x3 conv kernels' f32 sums, the resize backward's f32 sums and
+the train-mode BatchNorm's statistics and gradients, which add in another
+order (stated at the tests); the kernels round like their plain versions.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -663,3 +665,316 @@ def test_segformer_encoder_graphs_replay_the_eager_encoder(dtype):
         got_g = torch.autograd.grad(sum((t.float() * w).sum() for t, w in zip(tokens, weights)), params)
         want_g = torch.autograd.grad(sum((t.float() * w).sum() for t, w in zip(want, weights)), params)
         assert all(close(a, b) for a, b in zip(got_g, want_g))
+
+
+# Train-mode BatchNorm (kernels/batchnorm.py): shapes in channels_last, the
+# main path's layout: 256 channels (16-byte vectors), 19 (one element a
+# thread), 2048 (eight channel tiles); the ARM's gate (B, C, 1, 1).
+BN_SHAPES = [(8, 256, 33, 65), (8, 19, 33, 65), (8, 2048, 9, 17), (8, 512, 1, 1)]
+BN_IDS = ["cl256", "cl19", "cl2048", "gate"]
+BN_EPS, BN_MOMENTUM = 1e-5, 0.9
+
+
+def _bn_case(shape, dtype, seed, rows=None):
+    """x off-centre per channel (as a conv's output is), weight, bias,
+    running statistics and an output gradient, on the card, channels_last;
+    ``rows``: x and dy cut into that many parts of the batch (a rank's
+    rows), of other means."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[1]
+    x = (torch.randn(shape, generator=g, device="cuda") * 1.5
+         + torch.randn((1, c, 1, 1), generator=g, device="cuda"))
+    if rows:
+        x = x + torch.randn((rows, 1, c, 1, 1), generator=g, device="cuda").repeat_interleave(
+            shape[0] // rows, 0).flatten(0, 1)
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    weight = 1 + 0.2 * torch.randn(c, generator=g, device="cuda")
+    bias = 0.1 * torch.randn(c, generator=g, device="cuda")
+    stats = (0.1 * torch.randn(c, generator=g, device="cuda"), 1 + 0.1 * torch.rand(c, generator=g, device="cuda"))
+    dy = torch.randn(shape, generator=g, device="cuda").to(dtype).contiguous(memory_format=torch.channels_last)
+    return x, weight, bias, stats, dy
+
+
+def _bn_forward(x, weight, bias, stats, update=True, relu=True, mesh=None):
+    from rtda_semanticsegmentation_tpu_torch.kernels import batchnorm as kbn
+
+    rm, rv = stats[0].clone(), stats[1].clone()
+    y, coef = kbn.batch_norm_forward(x, weight, bias, rm, rv, eps=BN_EPS, momentum=BN_MOMENTUM, update=update,
+                                     relu=relu, mesh=mesh)
+    return y, coef, rm, rv
+
+
+def _bn_stats_errors(x, coef, stats, rm, rv):
+    """The mean's error against f64 sums as a share of E|x|, invstd's
+    relative error, and the running statistics' (mean: of E|x|; var:
+    relative) against the f64 update by n / (n - 1)."""
+    x64 = x.double()
+    mean64 = x64.mean(dim=(0, 2, 3))
+    var64 = x64.square().mean(dim=(0, 2, 3)) - mean64.square()
+    scale = x64.abs().mean().item()
+    invstd64 = torch.rsqrt(var64 + BN_EPS)
+    n = x.numel() // x.shape[1]
+    want_rm = BN_MOMENTUM * stats[0].double() + (1 - BN_MOMENTUM) * mean64
+    want_rv = BN_MOMENTUM * stats[1].double() + (1 - BN_MOMENTUM) * var64 * n / max(n - 1, 1)
+    return ((coef[0].double() - mean64).abs().max().item() / scale,
+            ((coef[1].double() - invstd64) / invstd64).abs().max().item(),
+            (rm.double() - want_rm).abs().max().item() / scale,
+            ((rv.double() - want_rv) / want_rv).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", BN_SHAPES, ids=BN_IDS)
+def test_batchnorm_statistics_match_plain_version(shape, dtype):
+    """The kernels' mean and invstd against f64 sums, within f32 summation
+    order (1e-5 of E|x| for the mean, 2e-5 relative for invstd), no
+    further than that from the plain version's; mul and add the plain
+    expressions' bits from them; the running statistics moved toward the
+    batch's (f64, n / (n - 1)) and held without ``update``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtda_semanticsegmentation_tpu_torch.kernels import batchnorm as kbn
+
+    x, weight, bias, stats, _ = _bn_case(shape, dtype, 1)
+    y, coef, rm, rv = _bn_forward(x, weight, bias, stats)
+    plain = kbn.coefficients_plain(x, weight, bias, BN_EPS)
+    torch.cuda.synchronize()
+    mean_err, invstd_err, rm_err, rv_err = _bn_stats_errors(x, coef, stats, rm, rv)
+    assert mean_err <= 1e-5 and invstd_err <= 2e-5 and rm_err <= 2e-6 and rv_err <= 2e-6
+    scale = x.double().abs().mean().item()
+    assert (plain[0].double() - coef[0].double()).abs().max().item() <= 2e-5 * scale
+    assert torch.equal(coef[2], weight * coef[1]) and torch.equal(coef[3], bias - coef[0] * coef[2])
+    _, _, rm_held, rv_held = _bn_forward(x, weight, bias, stats, update=False)
+    assert torch.equal(rm_held, stats[0]) and torch.equal(rv_held, stats[1])
+
+
+def _bn_plain_apply(x, coef, relu):
+    import torch.nn.functional as F
+
+    from rtda_semanticsegmentation_tpu_torch.kernels import batchnorm as kbn
+
+    out = kbn.apply_scale_shift(x, coef[2], coef[3])
+    return F.relu(out) if relu else out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", BN_SHAPES, ids=BN_IDS)
+def test_batchnorm_forward_is_the_plain_apply_bit_for_bit(shape, dtype, relu):
+    """Given the same mul and add, the plain version's bits: the forward
+    against the plain expressions on its own coefficients; y in x's
+    layout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, weight, bias, stats, _ = _bn_case(shape, dtype, 2)
+    y, coef, _, _ = _bn_forward(x, weight, bias, stats, relu=relu)
+    assert y.dtype == dtype and y.stride() == x.stride()
+    assert torch.equal(y, _bn_plain_apply(x, coef, relu))
+
+
+def _bn_f64_grads(dy, x, weight, bias, mask):
+    """f64 autograd of the forward's expressions without rounding, the
+    ReLU's mask fixed (None: no ReLU)."""
+    from rtda_semanticsegmentation_tpu_torch.kernels import batchnorm as kbn
+
+    x64 = x.detach().double().requires_grad_(True)
+    w64, b64 = weight.detach().double().requires_grad_(True), bias.detach().double().requires_grad_(True)
+    mean, var, _ = kbn.statistics(x64)
+    z = kbn.apply_scale_shift(x64, *kbn.scale_shift(w64, b64, mean, var, BN_EPS))
+    z.backward(dy.double() if mask is None else dy.double() * mask)
+    return x64.grad, w64.grad, b64.grad
+
+
+def _bn_grad_errors(runs, dy, x, weight, bias, relu):
+    """For each path of ``runs`` (y, dx, dweight, dbias): the largest error
+    of each gradient against f64 autograd (the ReLU's mask of the path's
+    own y), and that gradient's largest magnitude."""
+    errs = {}
+    for path, (y, *grads) in runs.items():
+        want = _bn_f64_grads(dy, x, weight, bias, (y > 0) if relu else None)
+        errs[path] = [((g.double() - w).abs().max().item(), w.abs().max().item()) for g, w in zip(grads, want)]
+    return errs
+
+
+def _bn_no_worse(errs, path, dtype):
+    """``path``'s errors no larger than the plain autograd chain's, plus one
+    bf16 ulp of the largest gradient (bf16; 1e-5 of it in f32)."""
+    for (err, top), (plain_err, _) in zip(errs[path], errs["plain"]):
+        slack = 2.0 ** (math.frexp(top)[1] - 9) if dtype == torch.bfloat16 else 1e-5 * top
+        assert err <= plain_err + slack, (path, errs, slack)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", BN_SHAPES, ids=BN_IDS)
+def test_batchnorm_backward_against_f64(shape, dtype, relu):
+    """Through the autograd Function: dx, dweight and dbias against f64
+    autograd of the forward (the ReLU's mask of each path's own output),
+    their largest error no larger than autograd of the plain version's on
+    the card, plus one bf16 ulp of the largest gradient (bf16; 1e-5 of it
+    in f32, sums in another order); the same bits on a second run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtda_semanticsegmentation_tpu_torch.kernels import batchnorm as kbn
+
+    x, weight, bias, stats, dy = _bn_case(shape, dtype, 3)
+    runs = {}
+    for path, fn in (("kernel", kbn.batch_norm_train), ("kernel_again", kbn.batch_norm_train),
+                     ("plain", kbn.batch_norm_train_plain)):
+        xg = x.clone().requires_grad_(True)
+        wg, bg = weight.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+        y = fn(xg, wg, bg, stats[0].clone(), stats[1].clone(), eps=BN_EPS, momentum=BN_MOMENTUM, update=True,
+               relu=relu)
+        y.backward(dy)
+        runs[path] = (y.detach(), xg.grad, wg.grad, bg.grad)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(runs["kernel"], runs["kernel_again"]))
+    assert runs["kernel"][1].dtype == dtype and runs["kernel"][1].stride() == x.stride()
+    del runs["kernel_again"]
+    _bn_no_worse(_bn_grad_errors(runs, dy, x, weight, bias, relu), "kernel", dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_batchnorm_data_parallel_is_one_process_on_the_whole_batch(dtype, relu):
+    """Two ranks as threads (``tests/thread_mesh.py``), each calling the
+    kernels' forward and backward on its half of the batch: the whole
+    batch's statistics within f32 summation order of f64 sums, the running
+    statistics moved by the global count, each rank's y the plain apply's
+    bits from its coefficients, the same coefficients on both ranks; the
+    ranks' dx (rows) and dweight and dbias (summed, as the step sums them)
+    no further from f64 autograd on the whole batch than the plain
+    autograd chain's, plus one bf16 ulp (1e-5 in f32); the same bits on a
+    second run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from thread_mesh import run_ranks
+
+    from rtda_semanticsegmentation_tpu_torch.kernels import batchnorm as kbn
+
+    kbn._library()  # built once, before the ranks' threads
+    x, weight, bias, stats, dy = _bn_case((8, 256, 33, 65), dtype, 6, rows=2)
+    halves = [(x[:4], dy[:4]), (x[4:], dy[4:])]
+
+    def rank(mesh, xr, dyr):
+        y, coef, rm, rv = _bn_forward(xr, weight, bias, stats, relu=relu, mesh=mesh)
+        dx, dweight, dbias = kbn.batch_norm_backward(dyr, xr, weight, coef, relu=relu, mesh=mesh)
+        torch.cuda.synchronize()
+        return y, coef, rm, rv, dx, dweight, dbias
+
+    got = run_ranks(rank, halves)
+    again = run_ranks(rank, halves)
+    assert all(torch.equal(a, b) for r, s in zip(got, again) for a, b in zip(r, s))
+    (y0, coef, rm, rv, *_), (y1, coef1, rm1, rv1, *_) = got
+    assert torch.equal(coef, coef1) and torch.equal(rm, rm1) and torch.equal(rv, rv1)
+    mean_err, invstd_err, rm_err, rv_err = _bn_stats_errors(x, coef, stats, rm, rv)
+    assert mean_err <= 1e-5 and invstd_err <= 2e-5 and rm_err <= 2e-6 and rv_err <= 2e-6
+    for (xr, _), (yr, *_) in zip(halves, got):
+        assert torch.equal(yr, _bn_plain_apply(xr, coef, relu))
+    xg = x.clone().requires_grad_(True)
+    wg, bg = weight.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+    y = kbn.batch_norm_train_plain(xg, wg, bg, stats[0].clone(), stats[1].clone(), eps=BN_EPS,
+                                   momentum=BN_MOMENTUM, update=True, relu=relu)
+    y.backward(dy)
+    runs = {"ranks": (torch.cat([y0, y1]), torch.cat([got[0][4], got[1][4]]), got[0][5] + got[1][5],
+                      got[0][6] + got[1][6]),
+            "plain": (y.detach(), xg.grad, wg.grad, bg.grad)}
+    _bn_no_worse(_bn_grad_errors(runs, dy, x, weight, bias, relu), "ranks", dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo", [0, 256])
+def test_batchnorm_backward_reads_a_channel_slice_in_place(lo):
+    """The gradient of one part of a torch.cat (a channel slice of the
+    concatenation's channels_last gradient, as the FFM hands the spatial
+    path's last ConvBN) is read in place, with no copy, to the bits of a
+    dense copy of it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtda_semanticsegmentation_tpu_torch.kernels import batchnorm as kbn
+
+    x, weight, bias, stats, _ = _bn_case((8, 256, 33, 65), torch.bfloat16, 4)
+    _, coef, _, _ = _bn_forward(x, weight, bias, stats)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    wide = torch.randn((8, 1024, 33, 65), generator=g, device="cuda").to(torch.bfloat16)
+    dy = wide.contiguous(memory_format=torch.channels_last)[:, lo:lo + 256]
+    assert not kbn.takes(dy) and kbn.row_stride(dy) == 1024
+    before = kbn.copies
+    got = kbn.batch_norm_backward(dy, x, weight, coef, relu=True)
+    assert kbn.copies == before
+    want = kbn.batch_norm_backward(dy.contiguous(memory_format=torch.channels_last), x, weight, coef, relu=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_batchnorm_copies_a_contiguous_nchw_input(dtype):
+    """A contiguous NCHW input (no layer of the main path gives one) is
+    copied into channels_last once, counted, and gives the bits of the
+    channels_last input: output, running statistics and gradients; an NCHW
+    gradient of a channels_last input is copied once too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtda_semanticsegmentation_tpu_torch.kernels import batchnorm as kbn
+
+    x, weight, bias, stats, dy = _bn_case((8, 64, 33, 65), dtype, 7)
+    runs = []
+    for xin, dyin, copies in ((x, dy, 0), (x.contiguous(), dy, 1), (x, dy.contiguous(), 1)):
+        before = kbn.copies
+        xg = xin.clone().requires_grad_(True)
+        wg, bg = weight.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+        rm, rv = stats[0].clone(), stats[1].clone()
+        y = kbn.batch_norm_train(xg, wg, bg, rm, rv, eps=BN_EPS, momentum=BN_MOMENTUM, update=True, relu=True)
+        y.backward(dyin)
+        torch.cuda.synchronize()
+        assert kbn.copies - before == copies
+        runs.append((y.detach(), rm, rv, xg.grad, wg.grad, bg.grad))
+    assert all(torch.equal(a, b) for run in runs[1:] for a, b in zip(run, runs[0]))
+
+
+@pytest.mark.cuda
+def test_batchnorm_counts_each_call_and_each_copy():
+    """One forward and one backward call a ConvBN in train mode on the
+    card, no copy in the layout the kernels take; an input in another
+    layout is copied once, a gradient in another layout than its input's
+    once; the running statistics held inside ``running_stats_held``; what
+    the kernels refuse raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtda_semanticsegmentation_tpu_torch.kernels import batchnorm as kbn
+    from rtda_semanticsegmentation_tpu_torch.models.layers import ConvBN, running_stats_held
+
+    block = ConvBN(16, 64, 3, 1, 1, dtype=torch.bfloat16).cuda().train()
+    for p in block.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.1)
+    x = torch.randn((4, 16, 24, 40), device="cuda").to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+
+    def counts():
+        return kbn.fwd_calls, kbn.bwd_calls, kbn.copies
+
+    before = counts()
+    block(x).sum().backward()  # an expanded gradient: every stride 0, copied
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1)
+    before = counts()
+    y = block(x)
+    y.backward(torch.ones_like(y))
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 0)
+    stats = (block.bn.running_mean.clone(), block.bn.running_var.clone())
+    with running_stats_held(block):
+        block(x)
+    torch.cuda.synchronize()
+    assert torch.equal(block.bn.running_mean, stats[0]) and torch.equal(block.bn.running_var, stats[1])
+    before = counts()
+    xt = torch.randn((4, 64, 40, 24), device="cuda").to(torch.bfloat16).transpose(2, 3)
+    kbn.batch_norm_train(xt, block.bn.weight, block.bn.bias, *stats, eps=BN_EPS, momentum=BN_MOMENTUM,
+                         update=False, relu=True)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 0, 1)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        kbn.batch_norm_train(xt.half(), block.bn.weight, block.bn.bias, *stats, eps=BN_EPS,
+                             momentum=BN_MOMENTUM, update=False, relu=True)
