@@ -5,6 +5,11 @@ PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
+This is where the kernels are checked: at small shapes chosen for their
+edges and at the main path's shapes, which ``chip_smoke.py`` keeps in its
+tables (``SHAPES``, ``CONV3_SHAPES``, ``UPSAMPLE_SITES``, ``BN_SHAPES``)
+and times the kernels at.
+
 Tolerance: none, except the Lovász histogram's f32 error sums, the
 4x4/s2 and 3x3 conv kernels' f32 sums, the resize backward's f32 sums and
 the train-mode BatchNorm's statistics and gradients, which add in another
@@ -17,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from rtda_semanticsegmentation_tpu_torch.kernels import conv3x3 as k4
 from rtda_semanticsegmentation_tpu_torch.kernels import conv4x4 as kc
 from rtda_semanticsegmentation_tpu_torch.kernels import int8_conv as k3
@@ -30,32 +36,61 @@ from rtda_semanticsegmentation_tpu_torch.ops.losses import lovasz_softmax_binned
 # of 16 (the padded copy of xq)
 SHAPES = [(3, 1, 1, 128, 128), (3, 2, 1, 32, 48), (1, 2, 0, 32, 48), (3, 1, 1, 64, 19),
           (3, 2, 1, 64, 19), (3, 1, 1, 6, 5), (3, 2, 1, 16, 24), (3, 1, 1, 13, 19)]
+# The quantized convs of a BiSeNet-R101 and of a DeepLabV2 int8 request at b8
+# 512x1024 (chip_smoke.R101_K3_SHAPES): (cin, cout, h, w, kernel, stride,
+# padding, dilation, launches a request)
+R101_K3_SHAPES = list(dict.fromkeys(row[:-1] for rows in chip_smoke.R101_K3_SHAPES.values() for row in rows))
+# (batch, h, w, kernel, stride, pad, C, CO): the narrowed shapes, then every
+# undilated quantized conv of the three int8 models at b8 512x1024
+K3_CASES = list(dict.fromkeys(
+    [(2, 15, 17, k, s, p, C, CO) for k, s, p, C, CO in SHAPES]
+    + [(8, h, w, k, s, p, C, CO) for _, C, CO, h, w, k, s, p, _ in chip_smoke.SHAPES]
+    + [(8, h, w, k, s, p, C, CO) for C, CO, h, w, k, s, p, d in R101_K3_SHAPES if d == 1]))
+
+
+def _k3_operands(seed, b, h, w, k, C, CO):
+    """s8 codes and weights and the f32 epilogue. At the narrowed (2, 15,
+    17) numpy-seeded, ``a`` rand * 1e-4; at the main path's shapes drawn
+    on the card, the epilogue scaled so that z = acc * a + b spans a few
+    units and the requantized codes fill the grid instead of clipping:
+    std(acc) ~ 73.3^2 * sqrt(k * k * C)."""
+    if (b, h, w) == (2, 15, 17):
+        rng = np.random.RandomState(seed)
+        dev = torch.device("cuda")
+        xq = torch.from_numpy(rng.randint(-127, 128, (b, h, w, C)).astype(np.int8)).to(dev)
+        wq = torch.from_numpy(rng.randint(-127, 128, (k, k, C, CO)).astype(np.int8)).to(dev)
+        a = torch.from_numpy(rng.rand(CO).astype(np.float32) * 1e-4).to(dev)
+        bias = torch.from_numpy(rng.randn(CO).astype(np.float32)).to(dev)
+        inv = torch.from_numpy((rng.rand(CO).astype(np.float32) + 0.5) * 50).to(dev)
+        return xq, wq, a, bias, inv
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xq = torch.randint(-127, 128, (b, h, w, C), generator=g, device="cuda", dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, k, C, CO), generator=g, device="cuda", dtype=torch.int8)
+    a = torch.rand(CO, generator=g, device="cuda") * 2.0 / (73.3 ** 2 * (k * k * C) ** 0.5)
+    bias = torch.randn(CO, generator=g, device="cuda") * 0.5
+    inv = (torch.rand(CO, generator=g, device="cuda") + 0.5) * 100.0
+    return xq, wq, a, bias, inv
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,s,p,C,CO", SHAPES)
-def test_int8_conv_kernel_matches_plain_version(k, s, p, C, CO):
+@pytest.mark.parametrize("b,h,w,k,s,p,C,CO", K3_CASES)
+def test_int8_conv_kernel_matches_plain_version(b, h, w, k, s, p, C, CO):
     """Bit-identical; each call from the HWIO weights makes its K-major copy
     (and a padded xq where launch_plan says so), a call given
     ``kmajor_weights`` makes none but that xq."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    rng = np.random.RandomState(k * 1000 + C + CO)
-    dev = torch.device("cuda")
-    xq = torch.from_numpy(rng.randint(-127, 128, (2, 15, 17, C)).astype(np.int8)).to(dev)
-    wq = torch.from_numpy(rng.randint(-127, 128, (k, k, C, CO)).astype(np.int8)).to(dev)
-    a = torch.from_numpy(rng.rand(CO).astype(np.float32) * 1e-4).to(dev)
-    b = torch.from_numpy(rng.randn(CO).astype(np.float32)).to(dev)
-    inv = torch.from_numpy((rng.rand(CO).astype(np.float32) + 0.5) * 50).to(dev)
+    seed = k * 1000 + C + CO + (0 if b == 2 else h)
+    xq, wq, a, bias, inv = _k3_operands(seed, b, h, w, k, C, CO)
     kmajor = k3.kmajor_weights(wq)
     copy_x = int(k3.launch_plan(C, CO)[1])
     before = (k3.launches, k3.copies)
     for inv_out, relu, dt in ((None, False, torch.bfloat16), (None, True, torch.float32),
                               (inv, True, torch.bfloat16)):
         kw = dict(stride=s, padding=p, relu=relu, out_dtype=dt)
-        want = k3.int8_conv_plain(xq, wq, a, b, inv_out, **kw)
+        want = k3.int8_conv_plain(xq, wq, a, bias, inv_out, **kw)
         for prepared in (None, kmajor):
-            got = k3.int8_conv(xq, wq, a, b, inv_out, kmajor=prepared, **kw)
+            got = k3.int8_conv(xq, wq, a, bias, inv_out, kmajor=prepared, **kw)
             torch.cuda.synchronize()
             assert got.device == xq.device and got.dtype == want.dtype
             assert torch.equal(got, want), (relu, dt, inv_out is not None, prepared is None)
@@ -63,80 +98,85 @@ def test_int8_conv_kernel_matches_plain_version(k, s, p, C, CO):
     assert k3.copies == before[1] + 3 * (1 + 2 * copy_x)
 
 
-# (stride, dilation, C, CO): DeepLabV2's dilated 3x3 convs (padding =
-# dilation), narrowed, at both strides, on the N = 128 and N = 24 tiles
-DILATED = [(1, 2, 128, 128), (1, 4, 64, 48), (2, 2, 32, 19), (2, 4, 48, 24), (1, 4, 16, 19)]
+# (batch, h, w, stride, dilation, C, CO): DeepLabV2's dilated 3x3 convs
+# (padding = dilation), narrowed, at both strides, on the N = 128 and N = 24
+# tiles, then the two of a b8 512x1024 request
+DILATED = ([(2, 15, 17, s, d, C, CO)
+            for s, d, C, CO in ((1, 2, 128, 128), (1, 4, 64, 48), (2, 2, 32, 19), (2, 4, 48, 24), (1, 4, 16, 19))]
+           + [(8, h, w, s, d, C, CO) for C, CO, h, w, k, s, p, d in R101_K3_SHAPES if d > 1])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,d,C,CO", DILATED)
-def test_int8_conv_kernel_dilated_matches_plain_version(s, d, C, CO):
+@pytest.mark.parametrize("b,h,w,s,d,C,CO", DILATED)
+def test_int8_conv_kernel_dilated_matches_plain_version(b, h, w, s, d, C, CO):
     """Bit-identical at dilation 2 and 4 (the taps d apart, the zero-code
     border correction over the dilated taps), bf16 and s8 outputs; a
     dilation whose im2col box corner leaves the 8-bit range is refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    rng = np.random.RandomState(7000 + 10 * d + s + C)
-    dev = torch.device("cuda")
-    xq = torch.from_numpy(rng.randint(-127, 128, (2, 15, 17, C)).astype(np.int8)).to(dev)
-    wq = torch.from_numpy(rng.randint(-127, 128, (3, 3, C, CO)).astype(np.int8)).to(dev)
-    a = torch.from_numpy(rng.rand(CO).astype(np.float32) * 1e-4).to(dev)
-    b = torch.from_numpy(rng.randn(CO).astype(np.float32)).to(dev)
-    inv = torch.from_numpy((rng.rand(CO).astype(np.float32) + 0.5) * 50).to(dev)
+    seed = 7000 + 10 * d + s + C + (0 if b == 2 else h)
+    xq, wq, a, bias, inv = _k3_operands(seed, b, h, w, 3, C, CO)
     kmajor = k3.kmajor_weights(wq)
     for inv_out, relu, dt in ((None, False, torch.bfloat16), (inv, True, torch.bfloat16)):
         kw = dict(stride=s, padding=d, dilation=d, relu=relu, out_dtype=dt)
-        want = k3.int8_conv_plain(xq, wq, a, b, inv_out, **kw)
-        got = k3.int8_conv(xq, wq, a, b, inv_out, kmajor=kmajor, **kw)
+        want = k3.int8_conv_plain(xq, wq, a, bias, inv_out, **kw)
+        got = k3.int8_conv(xq, wq, a, bias, inv_out, kmajor=kmajor, **kw)
         torch.cuda.synchronize()
         assert got.shape == want.shape and torch.equal(got, want), (relu, inv_out is not None)
     with pytest.raises(ValueError, match="dilation"):
-        k3.int8_conv(xq, wq, a, b, stride=1, padding=127, dilation=129, relu=False, kmajor=kmajor)
+        k3.int8_conv(xq, wq, a, bias, stride=1, padding=127, dilation=129, relu=False, kmajor=kmajor)
 
 
-def _lovasz_case(seed, n, ignore_frac, kind="spread"):
-    """(2, 19, n) probabilities and labels: ``spread`` a softmax of
+def _lovasz_case(seed, n, ignore_frac, kind="spread", b=2):
+    """(b, 19, n) probabilities and labels: ``spread`` a softmax of
     3 * randn logits; ``uniform`` p = 1/C everywhere (every background pixel
     of a class in one bucket); ``one-hot`` a near one-hot softmax on a random
     class (errors in bucket 0 and bucket bins - 1)."""
     rng = np.random.RandomState(seed)
-    logits = rng.randn(2, 19, n).astype(np.float32) * 3.0
+    logits = rng.randn(b, 19, n).astype(np.float32) * 3.0
     if kind == "uniform":
         logits[:] = 0.0
     elif kind == "one-hot":
-        np.put_along_axis(logits, rng.randint(0, 19, (2, 1, n)), 30.0, axis=1)
+        np.put_along_axis(logits, rng.randint(0, 19, (b, 1, n)), 30.0, axis=1)
     p = np.exp(logits - logits.max(1, keepdims=True))
     p /= p.sum(1, keepdims=True)
-    labels = rng.randint(0, 19, (2, n)).astype(np.int32)
-    labels[rng.rand(2, n) < ignore_frac] = 255
+    labels = rng.randint(0, 19, (b, n)).astype(np.int32)
+    labels[rng.rand(b, n) < ignore_frac] = 255
     dev = torch.device("cuda")
     return torch.from_numpy(p.astype(np.float32)).to(dev), torch.from_numpy(labels).to(dev)
 
 
-# (pixels per image, ignore share, ignore label, distribution): a full tile,
-# a ragged count (one pixel a thread), all ignored, no ignore label, the
-# state at initialisation, a confident model, and more than 2^20 pixels
-LOVASZ_CASES = [(6144, 0.1, 255, "spread"), (1001, 0.1, 255, "spread"), (777, 1.0, 255, "spread"),
-                (513, 0.1, -1, "spread"), (6144, 0.1, 255, "uniform"), (6144, 0.1, 255, "one-hot"),
-                (600000, 0.1, 255, "spread")]
+# (images, pixels per image, ignore share, ignore label, distribution, bins):
+# a full tile, a ragged count (one pixel a thread), all ignored, no ignore
+# label, the state at initialisation, a confident model, and more than 2^20
+# pixels; then the source-only step's (8, 19, 512 * 1024) on the three
+# distributions at 256 bins and at 1024 and 2048 bins, where K1 (and, at
+# 2048, K2's interpolated table) split the classes into groups
+MAIN_PIXELS = chip_smoke.H * chip_smoke.W
+LOVASZ_CASES = [(2, 6144, 0.1, 255, "spread", 256), (2, 1001, 0.1, 255, "spread", 256),
+                (2, 777, 1.0, 255, "spread", 256), (2, 513, 0.1, -1, "spread", 256),
+                (2, 6144, 0.1, 255, "uniform", 256), (2, 6144, 0.1, 255, "one-hot", 256),
+                (2, 600000, 0.1, 255, "spread", 256)] + [
+    (8, MAIN_PIXELS, 0.1, 255, kind, 256) for kind in chip_smoke.LOVASZ_DISTRIBUTIONS] + [
+    (8, MAIN_PIXELS, 0.1, 255, "spread", bins) for bins in (1024, 2048)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,ignore_frac,ignore,kind", LOVASZ_CASES)
-def test_lovasz_hist_kernel_matches_plain_version(n, ignore_frac, ignore, kind):
+@pytest.mark.parametrize("b,n,ignore_frac,ignore,kind,bins", LOVASZ_CASES)
+def test_lovasz_hist_kernel_matches_plain_version(b, n, ignore_frac, ignore, kind, bins):
     """Counts exact; error sums within their fixed-point rounding (rtol
     1e-5, atol 1e-5); the same bits on a second run (integer sums)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    p, labels = _lovasz_case(n, n, ignore_frac, kind)
+    p, labels = _lovasz_case(n, n, ignore_frac, kind, b)
     before = klov.hist_launches
-    got = klov.lovasz_hist(p, labels, 256, ignore)
-    want = klov.lovasz_hist_plain(p, labels, 256, ignore)
+    got = klov.lovasz_hist(p, labels, bins, ignore)
+    want = klov.lovasz_hist_plain(p, labels, bins, ignore)
     torch.cuda.synchronize()
     assert klov.hist_launches == before + 1
     assert torch.equal(got[:, :2], want[:, :2])
     torch.testing.assert_close(got[:, 2], want[:, 2], rtol=1e-5, atol=1e-5)
-    assert torch.equal(klov.lovasz_hist(p, labels, 256, ignore), got)
+    assert torch.equal(klov.lovasz_hist(p, labels, bins, ignore), got)
     if ignore_frac == 1.0:
         assert not bool(got.any())
 
@@ -166,16 +206,17 @@ def test_lovasz_hist_above_max_pixels_is_the_same_bits(b, n, launches):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("interp", [True, False])
-@pytest.mark.parametrize("n,ignore_frac,ignore,kind", LOVASZ_CASES)
-def test_lovasz_bwd_kernel_matches_plain_version(interp, n, ignore_frac, ignore, kind):
+@pytest.mark.parametrize("b,n,ignore_frac,ignore,kind,bins", LOVASZ_CASES)
+def test_lovasz_bwd_kernel_matches_plain_version(interp, b, n, ignore_frac, ignore, kind, bins):
+    """Bit-identical, in both table forms."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    p, labels = _lovasz_case(n + 1, n, ignore_frac, kind)
+    p, labels = _lovasz_case(n + 1, n, ignore_frac, kind, b)
     g = torch.Generator(device="cuda").manual_seed(n)
-    table = torch.randn((19, 2, 256) if interp else (19, 256), generator=g, device="cuda") * 0.01
+    table = torch.randn((19, 2, bins) if interp else (19, bins), generator=g, device="cuda") * 0.01
     before = klov.bwd_launches
-    got = klov.lovasz_bwd(p, labels, table, 256, ignore, interp)
-    want = klov.lovasz_bwd_plain(p, labels, table, 256, ignore, interp)
+    got = klov.lovasz_bwd(p, labels, table, bins, ignore, interp)
+    want = klov.lovasz_bwd_plain(p, labels, table, bins, ignore, interp)
     torch.cuda.synchronize()
     assert klov.bwd_launches == before + 1
     assert torch.equal(got, want)
@@ -244,24 +285,26 @@ def test_lovasz_kernels_take_more_than_32_classes():
 
 
 @pytest.mark.cuda
-def test_binned_lovasz_launches_each_kernel_once_and_matches_the_cpu():
+@pytest.mark.parametrize("b,h,w", [(2, 64, 96), (8, chip_smoke.H, chip_smoke.W)])
+def test_binned_lovasz_launches_each_kernel_once_and_matches_the_cpu(b, h, w):
     """One forward and backward of the loss on the card, at 256, 1024 and
-    2048 bins (where K2 splits its classes): one K1 and one K2 launch; loss
-    and gradient equal the CPU's (rtol 1e-6: the error sums add in another
-    order; the tables, from exact counts, are the same)."""
+    2048 bins (where K2 splits its classes), small and at the source-only
+    step's shape: one K1 and one K2 launch; loss and gradient equal the
+    CPU's (rtol 1e-6: the error sums add in another order; the tables, from
+    exact counts, are the same)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    p, labels = _lovasz_case(9, 64 * 96, 0.1)
+    p, labels = _lovasz_case(9, h * w, 0.1, b=b)
     for bins in (256, 1024, 2048):
-        _binned_lovasz_card_vs_cpu(p, labels, bins)
+        _binned_lovasz_card_vs_cpu(p.reshape(b, 19, h, w), labels.reshape(b, h, w), bins)
 
 
 def _binned_lovasz_card_vs_cpu(p, labels, bins):
     out = {}
     for dev in ("cuda", "cpu"):
-        q = p.reshape(2, 19, 64, 96).to(dev).requires_grad_(True)
+        q = p.detach().to(dev).requires_grad_(True)
         before = (klov.hist_launches, klov.bwd_launches)
-        loss = lovasz_softmax_binned(q, labels.reshape(2, 64, 96).to(dev), bins=bins)
+        loss = lovasz_softmax_binned(q, labels.to(dev), bins=bins)
         loss.backward()
         torch.cuda.synchronize()
         launched = (klov.hist_launches - before[0], klov.bwd_launches - before[1])
@@ -277,9 +320,11 @@ def _binned_lovasz_card_vs_cpu(p, labels, bins):
 # straddling two K5a tiles (and four K5b tiles), one output row (B = 1,
 # H = 2), an odd number of output rows; for K5c an odd number of row pairs
 # (the last tile's band half used) with a ragged strip of 4 dy columns, and
-# three images of exactly one strip and 7 row pairs each
+# three images of exactly one strip and 7 row pairs each; then the
+# flagship's source and target softmax maps
 CONV4_SHAPES = [(2, 19, 64, 96, 64), (1, 7, 12, 20, 16), (1, 19, 36, 300, 64), (1, 19, 20, 400, 64),
-                (1, 19, 2, 96, 64), (2, 19, 22, 96, 64), (1, 19, 28, 264, 64), (3, 19, 12, 256, 64)]
+                (1, 19, 2, 96, 64), (2, 19, 22, 96, 64), (1, 19, 28, 264, 64), (3, 19, 12, 256, 64)] + [
+    (chip_smoke.BATCH, chip_smoke.CLASSES, *hw, chip_smoke.NDF) for hw in (chip_smoke.SOURCE_HW, chip_smoke.TARGET_HW)]
 
 
 def _assert_conv4_close(got, want, bf16: bool):
@@ -370,13 +415,15 @@ def test_fused_conv4x4_launches_only_the_needed_kernels(x_grad, w_grad, no_tf32)
 # CO multiples of 8: no operand copy), DeepLab's odd sizes and dilations, the
 # FFM's ragged CO = 19 on the N = 24 tile, more than one N tile, a 128-pixel
 # tile straddling two images (B = 2, 5x7), DeepLab's widths 257 and 129, the
-# R101 FFM's C = 3328, and the padded-copy routes (f32 x, C = 13 and 6, CO = 5)
+# R101 FFM's C = 3328, and the padded-copy routes (f32 x, C = 13 and 6, CO = 5);
+# then every 3x3 conv shape of the three serve paths at b8 512x1024
 CONV3_SHAPES = [(2, 16, 32, 64, 64, 1, torch.bfloat16), (1, 17, 33, 128, 128, 1, torch.bfloat16),
                 (2, 9, 17, 64, 256, 2, torch.bfloat16), (1, 9, 17, 32, 64, 4, torch.bfloat16),
                 (2, 8, 16, 104, 19, 1, torch.bfloat16), (1, 7, 5, 24, 5, 1, torch.float32),
                 (1, 6, 10, 13, 19, 2, torch.bfloat16), (2, 5, 7, 64, 64, 1, torch.bfloat16),
                 (1, 3, 257, 64, 64, 1, torch.bfloat16), (1, 5, 129, 128, 128, 2, torch.bfloat16),
-                (1, 4, 8, 3328, 19, 1, torch.bfloat16), (1, 6, 9, 6, 8, 1, torch.bfloat16)]
+                (1, 4, 8, 3328, 19, 1, torch.bfloat16), (1, 6, 9, 6, 8, 1, torch.bfloat16)] + [
+    (chip_smoke.BATCH, h, w, c, co, d, torch.bfloat16) for _, c, co, h, w, d, _ in chip_smoke.CONV3_SHAPES]
 
 
 @pytest.mark.cuda
@@ -457,18 +504,13 @@ def test_artifact_exported_on_the_cpu_runs_k3_on_the_card(tmp_path):
     assert got.device.type == "cuda" and torch.equal(got, want)
 
 
-# The resize's sites on the train paths at batch 8, (C, in_hw, out_hw, the
-# layout of the gradient there): the flagship's source and target logits
-# (contiguous NCHW from the loss), its ARM features cx1 and cx2 (channel
-# slices of the FFM concatenation's channels_last gradient, 1024 channels:
-# cx1 at 256, cx2 at 512), DeepLabV2's logits.
-UPSAMPLE_SITES = [
-    (19, (90, 160), (720, 1280), "nchw"), (19, (64, 128), (512, 1024), "nchw"),
-    (256, (45, 80), (90, 160), "slice"), (512, (23, 40), (90, 160), "slice"),
-    (256, (32, 64), (64, 128), "slice"), (512, (16, 32), (64, 128), "slice"),
-    (19, (65, 129), (512, 1024), "nchw"),
-]
-UPSAMPLE_IDS = ["src_logits", "tgt_logits", "src_cx1", "src_cx2", "tgt_cx1", "tgt_cx2", "dlv2_logits"]
+# The resize's sites on the train paths at batch 8 (chip_smoke.UPSAMPLE_SITES),
+# (C, in_hw, out_hw, the layout of the gradient there): the flagship's source
+# and target logits (contiguous NCHW from the loss), its ARM features cx1 and
+# cx2 (channel slices of the FFM concatenation's channels_last gradient, 1024
+# channels: cx1 at 256, cx2 at 512), DeepLabV2's logits.
+UPSAMPLE_SITES = [(c, in_hw, out_hw, layout) for _, c, in_hw, out_hw, layout, *_ in chip_smoke.UPSAMPLE_SITES]
+UPSAMPLE_IDS = [where.replace(" ", "_") for where, *_ in chip_smoke.UPSAMPLE_SITES]
 
 
 def _upsample_dy(c, out_hw, layout, dtype, seed, n=8):
@@ -500,13 +542,17 @@ def test_upsample_bwd_kernel_matches_plain_version(c, in_hw, out_hw, layout, dty
     1e-6 of the largest value (f32 sums in another order), and the largest
     error
     against f64 no larger than PyTorch's own backward's (bf16 atomics for a
-    bf16 gradient); channels_last out, as the model's resize asks."""
+    bf16 gradient); channels_last out, as the model's resize asks; the same
+    bits on a second call; no copy of the gradient."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dy = _upsample_dy(c, out_hw, layout, dtype, c + in_hw[0])
+    copies = kup.copies
     got = kup.upsample_bilinear_bwd(dy, in_hw, torch.channels_last)
+    again = kup.upsample_bilinear_bwd(dy, in_hw, torch.channels_last)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, again) and kup.copies == copies
     want = kup.upsample_bilinear_bwd_plain(dy, in_hw, exact=True)
     aten = torch.ops.aten.upsample_bilinear2d_backward(dy, list(out_hw), [8, c, *in_hw], False)
     err = (got.double() - want).abs()
@@ -669,9 +715,13 @@ def test_segformer_encoder_graphs_replay_the_eager_encoder(dtype):
 
 # Train-mode BatchNorm (kernels/batchnorm.py): shapes in channels_last, the
 # main path's layout: 256 channels (16-byte vectors), 19 (one element a
-# thread), 2048 (eight channel tiles); the ARM's gate (B, C, 1, 1).
+# thread), 2048 (eight channel tiles); the ARM's gate (B, C, 1, 1); then the
+# main path's of chip_smoke.BN_SHAPES (DeepLabV2's layer3 at 256 and 1024
+# channels, the flagship's stem, SegFormer's linear_fuse).
+BN_MAIN = {(chip_smoke.BATCH, c, h, w): where.replace(" ", "_") for where, c, h, w, *_ in chip_smoke.BN_SHAPES}
 BN_SHAPES = [(8, 256, 33, 65), (8, 19, 33, 65), (8, 2048, 9, 17), (8, 512, 1, 1)]
-BN_IDS = ["cl256", "cl19", "cl2048", "gate"]
+BN_IDS = ["cl256", "cl19", "cl2048", "gate"] + [i for shape, i in BN_MAIN.items() if shape not in BN_SHAPES]
+BN_SHAPES += [shape for shape in BN_MAIN if shape not in BN_SHAPES]
 BN_EPS, BN_MOMENTUM = 1e-5, 0.9
 
 
@@ -728,17 +778,20 @@ def _bn_stats_errors(x, coef, stats, rm, rv):
 def test_batchnorm_statistics_match_plain_version(shape, dtype):
     """The kernels' mean and invstd against f64 sums, within f32 summation
     order (1e-5 of E|x| for the mean, 2e-5 relative for invstd), no
-    further than that from the plain version's; mul and add the plain
-    expressions' bits from them; the running statistics moved toward the
-    batch's (f64, n / (n - 1)) and held without ``update``."""
+    further than that from the plain version's, the same bits on a second
+    run; mul and add the plain expressions' bits from them; the running
+    statistics moved toward the batch's (f64, n / (n - 1)) and held without
+    ``update``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from rtda_semanticsegmentation_tpu_torch.kernels import batchnorm as kbn
 
     x, weight, bias, stats, _ = _bn_case(shape, dtype, 1)
     y, coef, rm, rv = _bn_forward(x, weight, bias, stats)
+    _, coef_again, _, _ = _bn_forward(x, weight, bias, stats)
     plain = kbn.coefficients_plain(x, weight, bias, BN_EPS)
     torch.cuda.synchronize()
+    assert torch.equal(coef_again, coef)
     mean_err, invstd_err, rm_err, rv_err = _bn_stats_errors(x, coef, stats, rm, rv)
     assert mean_err <= 1e-5 and invstd_err <= 2e-5 and rm_err <= 2e-6 and rv_err <= 2e-6
     scale = x.double().abs().mean().item()
@@ -814,12 +867,14 @@ def test_batchnorm_backward_against_f64(shape, dtype, relu):
     autograd of the forward (the ReLU's mask of each path's own output),
     their largest error no larger than autograd of the plain version's on
     the card, plus one bf16 ulp of the largest gradient (bf16; 1e-5 of it
-    in f32, sums in another order); the same bits on a second run."""
+    in f32, sums in another order); the same bits on a second run; no copy
+    of a channels_last input or gradient."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from rtda_semanticsegmentation_tpu_torch.kernels import batchnorm as kbn
 
     x, weight, bias, stats, dy = _bn_case(shape, dtype, 3)
+    copies = kbn.copies
     runs = {}
     for path, fn in (("kernel", kbn.batch_norm_train), ("kernel_again", kbn.batch_norm_train),
                      ("plain", kbn.batch_norm_train_plain)):
@@ -830,6 +885,7 @@ def test_batchnorm_backward_against_f64(shape, dtype, relu):
         y.backward(dy)
         runs[path] = (y.detach(), xg.grad, wg.grad, bg.grad)
     torch.cuda.synchronize()
+    assert kbn.copies == copies
     assert all(torch.equal(a, b) for a, b in zip(runs["kernel"], runs["kernel_again"]))
     assert runs["kernel"][1].dtype == dtype and runs["kernel"][1].stride() == x.stride()
     del runs["kernel_again"]

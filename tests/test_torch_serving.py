@@ -211,9 +211,6 @@ PORT_ENTRY_MODULES = (
     "rtda_semanticsegmentation_tpu_torch.data.cache",
     "rtda_semanticsegmentation_tpu_torch.data.preprocess",
     "chip_smoke",
-    "profile_serve",
-    "profile_train",
-    "profile_conv",
 )
 
 
