@@ -9,8 +9,8 @@ failure:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles ``csrc/int8_conv.cu``, ``csrc/lovasz.cu``,
-   ``csrc/conv4x4s2.cu``, ``csrc/conv3x3.cu``, ``csrc/upsample.cu`` and
-   ``csrc/batchnorm.cu`` for
+   ``csrc/conv4x4s2.cu``, ``csrc/conv3x3.cu``, ``csrc/upsample.cu``,
+   ``csrc/batchnorm.cu`` and ``csrc/layernorm.cu`` for
    sm_90a into build/kernels/, one nvcc each, started together; prints the ptxas
    reports and, per source, the registers and spill bytes;
 3. kernels: each hand-written kernel alone at the main path's shapes, on
@@ -27,7 +27,11 @@ failure:
    + ReLU (``kernels/batchnorm.py``) at ``BN_SHAPES``, each pass timed
    inside a forward and backward (a torch.profiler trace, by kernel name,
    in a process of its own) beside its HBM bound, the forward and
-   backward warm and with a cold L2, and DeepLabV2's 104 a step by shape.
+   backward warm and with a cold L2, and DeepLabV2's 104 a step by shape;
+   LayerNorm (``kernels/layernorm.py``) at SegFormer-B5's seven shapes
+   (``LN_SHAPES``), forward and backward, summed over a step's 161, and
+   the calls of an eager B5 encoder forward and backward, which must be
+   those 161 each way.
    Each kernel is replayed from a CUDA graph (the device time without the
    host's) and launched back to back, per shape and summed per forward or
    step, beside its plain version, its bound (the card's published peaks,
@@ -190,14 +194,20 @@ failure:
 The last two lines are a JSON summary of the kernels and the result line.
 Each kernel's ``launches`` there counts its launches on the main path; the
 BatchNorm's entry counts ``calls`` instead: forward calls of the train
-steps, each with its backward, each of them 3 launches. ``max_abs_err`` is
+steps, each with its backward, each of them 3 launches; the LayerNorm's
+``calls`` are those of one eager forward and backward of SegFormer-B5's
+encoder at b8 512x1024 (counted from 0, and held to ``LN_SHAPES``), 1
+launch forward and 2 backward each, and its times the sums of
+``LN_SHAPES``' timings over a step's norms. ``max_abs_err`` is
 the largest |diff| phase 3 found against the plain version (for U1 against
-its f64 sums, for the BatchNorm dx's against f64 autograd).
+its f64 sums, for the BatchNorm dx's against f64 autograd, for the
+LayerNorm dx's against its expressions in f64).
 ``python3 chip_smoke.py --only distributed`` runs phases 1, 2, 13 and 14
 alone (a quicker check of the distributed path), ``--only tp`` phases 1, 2
 and 14, ``--only upsample`` phases 1, 2 and the resize backward's part of
 phase 3, ``--only batchnorm`` phases 1, 2 and the BatchNorm part of phase
-3; ``--worker`` is the form phases 13 and 14 start their ranks with (and
+3, ``--only layernorm`` phases 1, 2 and the LayerNorm part of phase 3;
+``--worker`` is the form phases 13 and 14 start their ranks with (and
 phase 3 its BatchNorm passes' trace).
 
 How fast a whole path runs is the benchmark's to say (``h100_bench/``,
@@ -233,6 +243,7 @@ from rtda_semanticsegmentation_tpu_torch.kernels import build as kbuild
 from rtda_semanticsegmentation_tpu_torch.kernels import conv3x3 as k4
 from rtda_semanticsegmentation_tpu_torch.kernels import conv4x4 as kc
 from rtda_semanticsegmentation_tpu_torch.kernels import int8_conv as k3
+from rtda_semanticsegmentation_tpu_torch.kernels import layernorm as kln
 from rtda_semanticsegmentation_tpu_torch.kernels import lovasz as klov
 from rtda_semanticsegmentation_tpu_torch.kernels import upsample as kup
 from rtda_semanticsegmentation_tpu_torch.models.factory import (
@@ -312,6 +323,20 @@ BN_SHAPES = (
 BN_DEEPLAB_STEP = ((64, 256, 512, 1), (64, 129, 257, 6), (256, 129, 257, 4), (128, 65, 129, 8), (512, 65, 129, 11),
                    (256, 65, 129, 46), (1024, 65, 129, 24), (2048, 65, 129, 4))
 BN_EPS, BN_MOMENTUM = 1e-5, 0.9
+# SegFormer-B5's LayerNorms (kernels/layernorm.py) in a b8 512x1024 train
+# step, bf16, as tests/test_torch_layernorm.py's census of the model finds
+# them: (where, rows, C, norms a step, each a forward and a backward); the
+# key reductions' norms hold the keys of stages 1-3
+LN_SHAPES = (
+    ("stage 1", 262144, 64, 8),
+    ("stage 1 keys", 4096, 64, 3),
+    ("stage 2", 65536, 128, 14),
+    ("stage 2 keys", 4096, 128, 6),
+    ("stage 3", 16384, 320, 82),
+    ("stage 3 keys", 4096, 320, 40),
+    ("stage 4", 4096, 512, 8),
+)
+LN_EPS = 1e-6
 # plain versions swapped in for each kernel of a path: (module, wrapper)
 LOVASZ_KERNELS = ((klov, "lovasz_hist"), (klov, "lovasz_bwd"))
 CONV4_KERNELS = ((kc, "conv4x4s2p1"), (kc, "conv4x4s2p1_dw"), (kc, "conv4x4s2p1_dx"))
@@ -424,7 +449,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    libraries = (k3._library, klov._library, kc._library, k4._library, kup._library, kbn._library)
+    libraries = (k3._library, klov._library, kc._library, k4._library, kup._library, kbn._library, kln._library)
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, started together
         for f in [pool.submit(lib) for lib in libraries]:
             f.result()
@@ -1083,6 +1108,153 @@ def phase_batchnorm_kernels() -> dict:
     torch.cuda.empty_cache()
     return {"ms": step["ms"], "plain_ms": step["plain_ms"], "library_ms": step["library_ms"],
             "bound_ms": step["bound_ms"], "max_abs_err": max_err, "bound_by": "bytes"}
+
+
+def _ln_operands(rows, c, seed, dtype=torch.bfloat16):
+    """Rows off-centre each (as a residual stream's are), weight, bias and
+    an output gradient, on the card."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = (torch.randn((rows, c), generator=g, device=DEV) * 1.5
+         + torch.randn((rows, 1), generator=g, device=DEV)).to(dtype)
+    dy = torch.randn((rows, c), generator=g, device=DEV).to(dtype)
+    weight = 1 + 0.2 * torch.randn(c, generator=g, device=DEV)
+    bias = 0.1 * torch.randn(c, generator=g, device=DEV)
+    return x, dy, weight, bias
+
+
+def _ulps(got, want) -> float:
+    """The largest |got - want| over the elements, each in ulps of ``got``'s
+    dtype at the f64 ``want``."""
+    _, e = torch.frexp(want)  # want in [2^(e-1), 2^e)
+    ulp = torch.ldexp(torch.full_like(want, torch.finfo(got.dtype).eps), e - 1)
+    return ((got.double() - want).abs() / ulp).max().item()
+
+
+def _ln_check(where, x, dy, weight, bias) -> tuple[float, float, float]:
+    """The LayerNorm kernels at one shape, as the cuda tests hold them: y
+    within one bf16 ulp, plus 1e-6 of the largest, of the plain version's
+    (where y nearly cancels to 0 both are several ulps of it from f64);
+    mean within 1e-5 of E|x|
+    and rstd within 2e-5 relative of f64; dx within one bf16 ulp (+ 1e-6
+    of the largest) of the backward's expressions in f64; dweight and
+    dbias within 1e-5 of the f64 sums of their terms' magnitudes. Returns
+    dx's largest error, and the largest y error in ulps against the
+    function in f64 of the kernels and of the plain version
+    (``F.layer_norm``)."""
+    y, mean, rstd = kln.layer_norm_forward(x, weight, bias, LN_EPS)
+    plain = kln.layer_norm_plain(x, weight, bias, LN_EPS)
+    against_plain(f"layernorm {where} y", y, plain, 1e-6)
+    y64 = kln.layer_norm_plain(x.double(), weight.to(x.dtype).float(), bias.to(x.dtype).float(), LN_EPS)
+    y_ulps, plain_ulps = _ulps(y, y64), _ulps(plain, y64)
+    mean64, rstd64 = kln.row_stats_plain(x, LN_EPS)
+    mean_err = (mean.double() - mean64).abs().max().item() / x.double().abs().mean().item()
+    rstd_err = ((rstd.double() - rstd64) / rstd64).abs().max().item()
+    dx, dweight, dbias = kln.layer_norm_backward(dy, x, weight, mean, rstd)
+    want = kln.layer_norm_grad_plain(dy, x, weight, mean64, rstd64)
+    err = against_plain(f"layernorm {where} dx", dx, want[0], 1e-6)
+    xh = (x.double() - mean64.unsqueeze(-1)) * rstd64.unsqueeze(-1)
+    scales = ((dy.double() * xh).abs().sum(0), dy.double().abs().sum(0))
+    param_err = max(((got.double() - w).abs() / s).max().item() for got, w, s in zip((dweight, dbias), want[1:], scales))
+    print(f"kernel layernorm {where} {tuple(x.shape)} {x.dtype}: y within one bf16 ulp of the plain version's; mean "
+          f"error {mean_err:.2e} of E|x|, rstd {rstd_err:.2e} relative; dx max |diff| against f64 {err:.3e}; "
+          f"dweight, dbias {param_err:.2e} of their terms' magnitudes; y at most {y_ulps:.2f} ulps from f64 "
+          f"(F.layer_norm {plain_ulps:.2f})")
+    if mean_err > 1e-5 or rstd_err > 2e-5 or param_err > 1e-5:
+        raise AssertionError(f"the LayerNorm kernels ({where}) fail their gates")
+    return err, y_ulps, plain_ulps
+
+
+def _ln_step(fn, x, dy, weight, bias):
+    """A forward and backward of ``fn`` (the plain version, or
+    ``F.layer_norm`` given the parameters in x's dtype) through autograd."""
+    xg = x.detach().requires_grad_(True)
+    wg, bg = weight.detach().requires_grad_(True), bias.detach().requires_grad_(True)
+    y = fn(xg, wg, bg, LN_EPS)
+    return torch.autograd.grad(y, (xg, wg, bg), dy)
+
+
+def _ln_library(x, w, b, eps):
+    return torch.nn.functional.layer_norm(x, w.shape, w, b, eps)
+
+
+def _ln_b5_calls() -> tuple[int, int]:
+    """The LayerNorm calls of one eager forward and backward of
+    SegFormer-B5's encoder (``model.backbone``: no graph, whose replay
+    counts its modules, not launches) at b8 512x1024 bf16, the counters
+    set to 0 first: ``(calls, copies)``. Raises unless the forward and the
+    backward each made ``LN_SHAPES``' 161."""
+    model = build_model(ModelConfig(name="segformer", compute_dtype="bfloat16"), DEV, train=True)
+    init_model(model, torch.Generator().manual_seed(0))
+    x = torch.randn((BATCH, 3, H, W), device=DEV).to(torch.bfloat16)
+    _zero_counters("layernorm.fwd_calls", "layernorm.bwd_calls", "layernorm.copies")
+    tokens = [t for t, _ in model.backbone(x.contiguous(memory_format=torch.channels_last))]
+    fwd = kln.fwd_calls
+    sum(t.float().sum() for t in tokens).backward()
+    torch.cuda.synchronize()
+    calls, copies, want = fwd, kln.copies, sum(norms for *_, norms in LN_SHAPES)
+    print(f"kernel layernorm in an eager SegFormer-B5 encoder forward and backward ({BATCH}, 3, {H}, {W}): "
+          f"{fwd} forward, {kln.bwd_calls} backward calls, {copies} copies (LN_SHAPES: {want})")
+    if not fwd == kln.bwd_calls == want:
+        raise AssertionError(f"SegFormer-B5 ran {fwd} / {kln.bwd_calls} LayerNorms, LN_SHAPES says {want}")
+    return calls, copies
+
+
+def phase_layernorm_kernels() -> dict:
+    """LayerNorm (``kernels/layernorm.py``) at SegFormer-B5's shapes
+    (``LN_SHAPES``), bf16: held to the plain version and f64 by
+    ``_ln_check``, then the forward and the backward replayed from a CUDA
+    graph (and the two launched back to back) beside their byte bound
+    (forward: read x, write y, 4 bytes an element; backward: read dy and x,
+    write dx, 6), the plain version's forward and backward
+    (``F.layer_norm`` on the parameters cast to bf16, with the casts) and
+    PyTorch's own ``F.layer_norm`` on parameters already in bf16
+    (``library_ms``; the port never calls it on a card), both replayed from
+    a graph. Then the calls of an eager B5 encoder step (``_ln_b5_calls``).
+    Returns, for the kernels line, the sums over one ``segb5-train`` step
+    (161 norms each way), its measured calls and copies, and y's largest
+    error in ulps against f64, the kernels' and ``F.layer_norm``'s."""
+    step = {"ms": 0.0, "stream_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    max_err = y_ulps = library_y_ulps = 0.0
+    for i, (where, rows, c, norms) in enumerate(LN_SHAPES):
+        x, dy, weight, bias = _ln_operands(rows, c, 700 + i)
+        err, ulps, plain_ulps = _ln_check(where, x, dy, weight, bias)
+        max_err, y_ulps, library_y_ulps = max(max_err, err), max(y_ulps, ulps), max(library_y_ulps, plain_ulps)
+        _, mean, rstd = kln.layer_norm_forward(x, weight, bias, LN_EPS)
+        forward = functools.partial(kln.layer_norm_forward, x, weight, bias, LN_EPS)
+        backward = functools.partial(kln.layer_norm_backward, dy, x, weight, mean, rstd)
+
+        def both():
+            forward()
+            backward()
+
+        fwd_ms, bwd_ms, stream_ms = graph_ms(forward), graph_ms(backward), cuda_ms(both, 20)
+        xg = x.detach().requires_grad_(True)
+        wg, bg = weight.detach().requires_grad_(True), bias.detach().requires_grad_(True)
+        us = host_us(lambda: torch.autograd.grad(kln.layer_norm(xg, wg, bg, LN_EPS), (xg, wg, bg), dy))
+        plain_ms = graph_ms(lambda: _ln_step(kln.layer_norm_plain, x, dy, weight, bias))
+        library_ms = graph_ms(lambda: _ln_step(_ln_library, x, dy, weight.to(x.dtype), bias.to(x.dtype)))
+        e = x.element_size()
+        fwd_bound, bwd_bound = 2 * e * x.numel() / HBM_BYTES_S * 1e3, 3 * e * x.numel() / HBM_BYTES_S * 1e3
+        ms = fwd_ms + bwd_ms
+        print(f"kernel layernorm {where} ({rows}, {c}) x{norms}: forward {fwd_ms:.4f} ms "
+              f"({fwd_bound / fwd_ms:.2f} of its bound {fwd_bound:.4f}), backward {bwd_ms:.4f} ms "
+              f"({bwd_bound / bwd_ms:.2f} of {bwd_bound:.4f}); launched back to back {stream_ms:.4f} ms; plain "
+              f"{plain_ms:.4f} ms, F.layer_norm {library_ms:.4f} ms; host {us:.1f} us a forward and backward; plan "
+              f"{kln.plan_of(x)}")
+        for key, v in (("ms", ms), ("stream_ms", stream_ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                       ("bound_ms", fwd_bound + bwd_bound)):
+            step[key] += norms * v
+        del x, dy, mean, rstd, xg
+    torch.cuda.empty_cache()
+    calls, copies = _ln_b5_calls()
+    print(f"kernel layernorm per segb5-train step ({calls} norms each way): {step['ms']:.3f} ms kernels "
+          f"({step['bound_ms'] / step['ms']:.2f} of the bound; launched back to back {step['stream_ms']:.3f}), plain "
+          f"{step['plain_ms']:.3f} ms, F.layer_norm {step['library_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms; "
+          f"y at most {y_ulps:.2f} ulps from f64 (F.layer_norm {library_y_ulps:.2f})")
+    torch.cuda.empty_cache()
+    return {"ms": step["ms"], "plain_ms": step["plain_ms"], "library_ms": step["library_ms"],
+            "bound_ms": step["bound_ms"], "max_abs_err": max_err, "bound_by": "bytes", "calls": calls,
+            "copies": copies, "y_ulps": y_ulps, "library_y_ulps": library_y_ulps}
 
 
 def _frames(seed: int) -> torch.Tensor:
@@ -2406,10 +2578,11 @@ def main() -> None:
         if kind == "bn_passes":
             return worker_bn_passes(out)
         return worker_cli(out, sys.argv[4:]) if kind == "cli" else worker_dp(out)
-    only = {"upsample": phase_upsample_kernels, "batchnorm": phase_batchnorm_kernels}
+    only = {"upsample": phase_upsample_kernels, "batchnorm": phase_batchnorm_kernels,
+            "layernorm": phase_layernorm_kernels}
     if sys.argv[1:] not in ([], ["--only", "distributed"], ["--only", "tp"], *(["--only", k] for k in only)):
         raise SystemExit(f"unknown arguments {sys.argv[1:]}: none, --only distributed, --only tp, "
-                         f"--only upsample or --only batchnorm")
+                         f"--only upsample, --only batchnorm or --only layernorm")
     t0 = time.perf_counter()
     card = phase_device()
     phase_build()
@@ -2430,6 +2603,7 @@ def main() -> None:
     conv3_times = phase_conv3_kernels()
     upsample_times = phase_upsample_kernels()
     batchnorm_times = phase_batchnorm_kernels()
+    layernorm_times = phase_layernorm_kernels()
     k3_launches, k4_launches = phase_slice()
     artifact_k3, artifact_k4 = phase_artifact()
     k3_launches += artifact_k3
@@ -2471,6 +2645,9 @@ def main() -> None:
     }, {
         "name": "batchnorm", "route": "cuda", "source": f"{pkg}/batchnorm.cu", "replaces": None,
         "calls": batchnorm_calls, **batchnorm_times,
+    }, {
+        "name": "layernorm", "route": "cuda", "source": f"{pkg}/layernorm.cu", "replaces": None,
+        **layernorm_times,
     }]
     print(f"chip_smoke.py: all phases passed in {time.perf_counter() - t0:.1f} s, the build included")
     print(json.dumps({"kernels": kernels}))

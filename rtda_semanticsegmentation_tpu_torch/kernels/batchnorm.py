@@ -58,7 +58,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from ..obs.spans import count, module_counters
-from .build import load_library
+from .build import launch, load_library, sm_count, stream_of
 
 SOURCE = "csrc/batchnorm.cu"
 
@@ -256,11 +256,6 @@ def launch_plan(rows: int, c: int, elem_bytes: int, aligned: bool, sms: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def _occupancy(f32: int, v: int, grad: int, threads: int) -> Tuple[int, int]:
     """Blocks an SM holds at once of the partial-sums and the elementwise
     kernel (their registers and shared memory included)."""
@@ -292,7 +287,7 @@ def _check(x: torch.Tensor, *vectors) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _plan(rows: int, c: int, elem_bytes: int, aligned: bool, index: int, grad: bool) -> dict:
-    sms = _sms(index)
+    sms = sm_count(index)
     plan = launch_plan(rows, c, elem_bytes, aligned, sms)
     per_sm = _occupancy(int(elem_bytes == 4), plan["v"], int(grad), plan["threads"])
     return launch_plan(rows, c, elem_bytes, aligned, sms, per_sm)
@@ -305,21 +300,6 @@ def plan_of(x: torch.Tensor, grad: bool, *others: torch.Tensor, ld: Optional[int
     occupancy on ``x``'s card."""
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, *others)) and (ld or 0) * x.element_size() % 16 == 0
     return _plan(x.numel() // x.shape[1], x.shape[1], x.element_size(), aligned, x.device.index or 0, grad)
-
-
-def _stream(x: torch.Tensor) -> int:
-    """The current stream of ``x``'s card, as the kernels take it."""
-    return torch._C._cuda_getCurrentRawStream(x.device.index or 0)
-
-
-def _launch(fn, x: torch.Tensor, *args) -> None:
-    if x.device.index != torch.cuda.current_device():
-        with torch.cuda.device(x.device):
-            err = fn(*args)
-    else:
-        err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
 
 def _ranks_sum(sums: torch.Tensor, rows: int, mesh) -> torch.Tensor:
@@ -343,11 +323,11 @@ def batch_norm_forward(x, weight, bias, running_mean, running_var, *, eps: float
     lib = _library()
 
     def run(partial_ptr, count_ptr, chunks, passes):
-        _launch(lib.batchnorm_forward, x, x.data_ptr(), y.data_ptr(), int(x.dtype == torch.float32), rows, c,
-                weight.data_ptr(), bias.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(),
-                coef.data_ptr(), partial_ptr, count_ptr, int(update), int(relu), eps, momentum, 1 - momentum,
-                plan["v"], plan["tx"], plan["ty"], chunks, plan["chunk_len"], plan["map_chunks"],
-                plan["map_chunk_len"], passes, _stream(x))
+        launch(lib.batchnorm_forward, x, x.data_ptr(), y.data_ptr(), int(x.dtype == torch.float32), rows, c,
+               weight.data_ptr(), bias.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(),
+               coef.data_ptr(), partial_ptr, count_ptr, int(update), int(relu), eps, momentum, 1 - momentum,
+               plan["v"], plan["tx"], plan["ty"], chunks, plan["chunk_len"], plan["map_chunks"],
+               plan["map_chunk_len"], passes, stream_of(x))
 
     if mesh is None:
         run(partial.data_ptr(), None, plan["chunks"], SUMS | FINISH | MAP)
@@ -382,10 +362,10 @@ def batch_norm_backward(dy, x, weight, coef, *, relu: bool, input_grad: bool = T
     lib = _library()
 
     def run(partial_ptr, count_ptr, chunks, passes):
-        _launch(lib.batchnorm_backward, x, x.data_ptr(), dy.data_ptr(), None if dx is None else dx.data_ptr(),
-                int(x.dtype == torch.float32), rows, c, ld, weight.data_ptr(), coef.data_ptr(), grad.data_ptr(),
-                partial_ptr, count_ptr, int(relu), plan["v"], plan["tx"], plan["ty"], chunks, plan["chunk_len"],
-                plan["map_chunks"], plan["map_chunk_len"], passes, _stream(x))
+        launch(lib.batchnorm_backward, x, x.data_ptr(), dy.data_ptr(), None if dx is None else dx.data_ptr(),
+               int(x.dtype == torch.float32), rows, c, ld, weight.data_ptr(), coef.data_ptr(), grad.data_ptr(),
+               partial_ptr, count_ptr, int(relu), plan["v"], plan["tx"], plan["ty"], chunks, plan["chunk_len"],
+               plan["map_chunks"], plan["map_chunk_len"], passes, stream_of(x))
 
     if mesh is None:
         run(partial.data_ptr(), None, plan["chunks"], SUMS | FINISH | MAP)

@@ -10,11 +10,14 @@ when a module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 from ..obs.spans import setup_span
 
@@ -70,3 +73,26 @@ def load_library(source: str) -> ctypes.CDLL:
         library = ctypes.CDLL(str(lib_path))
     build_log[source] = {"seconds": build.host_ms * 1e-3 if built else 0.0, "log": log}
     return library
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def stream_of(x: torch.Tensor) -> int:
+    """The current stream of ``x``'s card, as the launch functions take it."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index or 0)
+
+
+def launch(fn, x: torch.Tensor, *args) -> None:
+    """Calls the library's launch function ``fn`` with ``x``'s card current
+    and raises on the CUDA error it returns."""
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            err = fn(*args)
+    else:
+        err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..obs.spans import count, module_counters
-from .build import load_library
+from .build import load_library, sm_count
 
 SOURCE = "csrc/upsample.cu"
 
@@ -232,11 +232,6 @@ def operand(dy: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def _occupancy(f32: int, e: int, threads: int, smem: int) -> int:
     """Blocks of the kernel an SM holds at once (its registers included)."""
     blocks = _library().upsample_bwd_occupancy(f32, e, threads, smem)
@@ -249,7 +244,7 @@ def plan_of(dy: torch.Tensor, in_hw, layout: int) -> dict:
     """:func:`launch_plan` for a CUDA ``dy`` read in ``layout``, its bands
     sized by the kernel's occupancy on ``dy``'s card."""
     n, c, ho, wo = dy.shape
-    sms = _sms(dy.device.index or 0)
+    sms = sm_count(dy.device.index or 0)
     plan = launch_plan(n, c, tuple(in_hw), (ho, wo), layout, dy.element_size(), sms)
     per_sm = _occupancy(int(dy.dtype == torch.float32), plan["e"], plan["threads"], plan["smem"])
     return launch_plan(n, c, tuple(in_hw), (ho, wo), layout, dy.element_size(), sms, per_sm)

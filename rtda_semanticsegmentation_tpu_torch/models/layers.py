@@ -9,7 +9,8 @@ path, so the int8 kernel's NHWC view of them is free.
 
 SegFormer's pieces (``Linear``, ``LayerNorm``, the exact GELU, the
 depthwise ``Conv(groups=...)``) keep the same policy: f32 parameters, the
-compute in the model's dtype, the LayerNorm's statistics in f32.
+compute in the model's dtype, the LayerNorm's statistics in f32. On a card
+the LayerNorm runs the hand-written kernels of ``kernels/layernorm.py``.
 
 Module and tensor names mirror the flax tree (``conv``, ``bn``, ``scale`` ->
 ``weight``, ``mean`` -> ``running_mean`` ...), see ``models/convert.py``.
@@ -38,6 +39,7 @@ from torch.autograd.function import once_differentiable
 
 from ..kernels import batchnorm as _bn
 from ..kernels import conv3x3 as _k4
+from ..kernels import layernorm as _ln
 from ..kernels import upsample as _upsample
 from ..kernels.int8_conv import kmajor_weights
 from ..ops.quant import calib_clip_channels, fold_bn_epilogue, freeze_weights, int8_conv_unsigned
@@ -113,8 +115,10 @@ class Linear(nn.Module):
 
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis, f32 affine parameters (1 and 0) applied
-    in ``dtype``. The mean and variance are taken in f32: ``F.layer_norm``
-    accumulates a bf16 input in f32 and rounds only its output."""
+    in ``dtype``. The mean and variance are taken in f32 and the output
+    rounded once: on the CPU ``F.layer_norm`` on the parameters rounded to
+    ``dtype``, on a card the kernels of ``kernels/layernorm.py``, which
+    round them inside (``layernorm.*`` counters)."""
 
     def __init__(self, ch, eps=1e-5, *, dtype=torch.float32):
         super().__init__()
@@ -123,8 +127,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch))
 
     def forward(self, x):
-        dt = self.dtype
-        return F.layer_norm(x.to(dt), self.weight.shape, self.weight.to(dt), self.bias.to(dt), self.eps)
+        return _ln.layer_norm(x.to(self.dtype), self.weight, self.bias, self.eps)
 
 
 def gelu(x):

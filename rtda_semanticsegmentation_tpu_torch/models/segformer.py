@@ -51,9 +51,11 @@ kernels; the encoder has no buffers and no randomness, so the capture's
 warm-up passes change nothing. A graph holds one forward's activations,
 so a second forward of the same shape before the first's backward has
 reached the encoder (the adversarial step's two domains at one size) runs
-eager. A replay counts the blocks' 52 ``attention.calls`` itself (the
-graph's own calls do not reach Python). The head (train BatchNorm, the
-resizes and their counters) stays eager.
+eager. A replay counts the blocks' 52 ``attention.calls`` and the
+encoder's 161 ``layernorm.fwd_calls`` itself, and its 161
+``layernorm.bwd_calls`` when the backward reaches it (the graph's own
+calls do not reach Python). The head (train BatchNorm, the resizes and
+their counters) stays eager.
 """
 
 from __future__ import annotations
@@ -251,6 +253,7 @@ class SegFormer(nn.Module):
         if stages.pending:  # its activations still wait for their backward
             return self.backbone(x)
         count("attention.calls", sum(self.backbone.depths))
+        count("layernorm.fwd_calls", stages.norms)
         tokens = stages(x)
         stages.pending = True
         tokens[0].register_hook(stages.backward_reached)
@@ -266,9 +269,11 @@ class _Stages(nn.Module):
         self.backbone = backbone
         self.grids: List[HW] = []
         self.pending = False  # replayed, and the backward has not reached it
+        self.norms = sum(isinstance(m, LayerNorm) for m in backbone.modules())  # each a call each way
 
     def backward_reached(self, grad):
         self.pending = False
+        count("layernorm.bwd_calls", self.norms)
 
     def forward(self, x):
         feats = self.backbone(x)

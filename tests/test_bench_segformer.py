@@ -188,3 +188,49 @@ def test_new_metrics_are_the_cells_alone():
     assert {m["name"] for m in _cell().per_layer} >= set(NEW)
     for other in ("r18-adv-train", "dlv2-train", "r18-serve-b8"):
         assert not {m["name"] for m in spec.resolve(bench, other).per_layer} & set(NEW)
+
+
+# the LayerNorm's kernels as the profiler names them: PyTorch's (the parent's
+# F.layer_norm) and the port's (csrc/layernorm.cu)
+LN_TORCH = ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<c10::BFloat16, float, false>(int)",
+            "void at::native::(anonymous namespace)::layer_norm_grad_input_kernel_vectorized<c10::BFloat16, float>",
+            "void at::native::(anonymous namespace)::GammaBetaBackwardCUDAKernelTemplate<c10::BFloat16, float, 32u>",
+            "void at::native::(anonymous namespace)::RowwiseMomentsCUDAKernel<c10::BFloat16, float>(long, float)")
+LN_PORT = tuple(f"void (anonymous namespace)::{k}<__nv_bfloat16, 8, 5>((anonymous namespace)::LnArgs)"
+                for k in ("layernorm_forward", "layernorm_backward")) + (
+    "(anonymous namespace)::layernorm_finish((anonymous namespace)::LnArgs)",)
+
+
+@pytest.mark.parametrize("names", [LN_TORCH, LN_PORT], ids=["pytorch", "port"])
+def test_layernorm_reader_reads_either_programs_kernels(names):
+    """``layernorm_ms.train`` sums the LayerNorm's kernels a step, PyTorch's
+    or the port's, and nothing else; None without a trace, without such a
+    kernel, or in a serve run."""
+    device = [(n, 100.0 * i, 100.0 * i + 40.0) for i, n in enumerate(names)]
+    device += [(FLASH, 1000.0, 1500.0), ("void cudnn::conv_kernel", 1500.0, 1600.0), (DW, 1600.0, 1700.0),
+               ("elementwise_kernel", 1700.0, 1800.0)]
+    assert _read("layernorm_ms.train", _run(device)) == pytest.approx(len(names) * 40e-3 / 2)
+    assert _read("layernorm_ms.train", _run(None)) is None
+    assert _read("layernorm_ms.train", _run(device[len(names):])) is None
+    assert _read("layernorm_ms.train", _run(device, kind="serve")) is None
+
+
+def test_port_layernorm_kernels_are_named_for_the_reader_alone():
+    """Every kernel of ``csrc/layernorm.cu`` carries ``layernorm`` in its
+    name and no word that a kernel group of ``lib/trace.py`` claims, so it
+    falls in no other layer's group; the metric is ``segb5-train``'s
+    alone, in the SegFormer model layer, moving ``train_img_s``."""
+    import re
+
+    from h100_bench.lib import trace
+
+    src = (spec.ROOT / "rtda_semanticsegmentation_tpu_torch" / "csrc" / "layernorm.cu").read_text()
+    kernels = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\)\)?)?\s+(\w+)\(", src)
+    assert sorted(kernels) == ["layernorm_backward", "layernorm_finish", "layernorm_forward"]
+    for name in kernels + list(LN_PORT):
+        assert "layernorm" in name and trace.group(name) == "elementwise", name
+    bench = spec.benchmark()
+    entry = next(m for m in bench["per_layer"] if m["name"] == "layernorm_ms.train")
+    assert entry["workloads"] == ["segb5-train"] and entry["moves"] == "train_img_s" and entry["layer"] == "model"
+    for other in ("r18-adv-train", "dlv2-train", "r18-serve-b8"):
+        assert "layernorm_ms.train" not in {m["name"] for m in spec.resolve(bench, other).per_layer}

@@ -7,13 +7,14 @@ PyTorch is installed:
 
 This is where the kernels are checked: at small shapes chosen for their
 edges and at the main path's shapes, which ``chip_smoke.py`` keeps in its
-tables (``SHAPES``, ``CONV3_SHAPES``, ``UPSAMPLE_SITES``, ``BN_SHAPES``)
-and times the kernels at.
+tables (``SHAPES``, ``CONV3_SHAPES``, ``UPSAMPLE_SITES``, ``BN_SHAPES``,
+``LN_SHAPES``) and times the kernels at.
 
 Tolerance: none, except the Lovász histogram's f32 error sums, the
-4x4/s2 and 3x3 conv kernels' f32 sums, the resize backward's f32 sums and
-the train-mode BatchNorm's statistics and gradients, which add in another
-order (stated at the tests); the kernels round like their plain versions.
+4x4/s2 and 3x3 conv kernels' f32 sums, the resize backward's f32 sums,
+the train-mode BatchNorm's statistics and gradients and the LayerNorm's,
+which add in another order (stated at the tests); the kernels round like
+their plain versions.
 """
 
 import math
@@ -1034,3 +1035,209 @@ def test_batchnorm_counts_each_call_and_each_copy():
     with pytest.raises(ValueError, match="bf16 or f32"):
         kbn.batch_norm_train(xt.half(), block.bn.weight, block.bn.bias, *stats, eps=BN_EPS,
                              momentum=BN_MOMENTUM, update=False, relu=True)
+
+
+# LayerNorm (kernels/layernorm.py): SegFormer-B5's seven (rows, C) of a train
+# step (chip_smoke.LN_SHAPES), then edges: a ragged last block (1000 rows, no
+# multiple of a block's groups), fewer rows than a block's groups (3) and
+# three vectors a thread (96)
+LN_CASES = [(rows, c) for _, rows, c, _ in chip_smoke.LN_SHAPES] + [(1000, 320), (3, 64), (77, 96)]
+LN_IDS = [where.replace(" ", "_") for where, *_ in chip_smoke.LN_SHAPES] + ["ragged", "few_rows", "c96"]
+LN_EPS = 1e-6
+
+
+def _ln_case(rows, c, dtype, seed):
+    """x with rows off-centre each (as a residual stream's are), weight,
+    bias and an output gradient, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((rows, c), generator=g, device="cuda") * 1.5
+         + torch.randn((rows, 1), generator=g, device="cuda")).to(dtype)
+    weight = 1 + 0.2 * torch.randn(c, generator=g, device="cuda")
+    bias = 0.1 * torch.randn(c, generator=g, device="cuda")
+    dy = torch.randn((rows, c), generator=g, device="cuda").to(dtype)
+    return x, weight, bias, dy
+
+
+def _ln_run(x, weight, bias, dy):
+    from rtda_semanticsegmentation_tpu_torch.kernels import layernorm as kln
+
+    y, mean, rstd = kln.layer_norm_forward(x, weight, bias, LN_EPS)
+    return (y, mean, rstd, *kln.layer_norm_backward(dy, x, weight, mean, rstd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,c", LN_CASES, ids=LN_IDS)
+def test_layernorm_kernels_match_plain_version(rows, c, dtype):
+    """Against the plain version and f64: y within one bf16 ulp of
+    ``layer_norm_plain``'s (f32: 1e-6 of the largest, its Welford
+    statistics against the kernel's two passes); each row's mean within
+    1e-5 of E|x| and rstd within 2e-5 relative of f64 (f32 sums in another
+    order); dx within one bf16 ulp, plus 1e-6 of the largest, of the
+    backward's expressions in f64 on the f64 statistics (f32: 1e-5 of the
+    largest: its f32 sums cancel); dweight and dbias within 1e-5 of the f64
+    sums of their terms' magnitudes, per channel (f32 sums in blocks, then
+    f64); the same bits on a second run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtda_semanticsegmentation_tpu_torch.kernels import layernorm as kln
+
+    x, weight, bias, dy = _ln_case(rows, c, dtype, rows + c)
+    got = _ln_run(x, weight, bias, dy)
+    again = _ln_run(x, weight, bias, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    y, mean, rstd, dx, dweight, dbias = got
+    assert y.dtype == dx.dtype == dtype and dweight.dtype == dbias.dtype == torch.float32
+    plain = kln.layer_norm_plain(x, weight, bias, LN_EPS)
+    mean64, rstd64 = kln.row_stats_plain(x, LN_EPS)
+    want = kln.layer_norm_grad_plain(dy, x, weight, mean64, rstd64)
+    if dtype == torch.bfloat16:
+        assert _within_bf16_ulp(y, plain.double())
+        assert _within_bf16_ulp(dx, want[0])
+    else:
+        assert (y - plain).abs().max().item() <= 1e-6 * plain.abs().max().item()
+        assert (dx.double() - want[0]).abs().max().item() <= 1e-5 * want[0].abs().max().item()
+    assert (mean.double() - mean64).abs().max().item() <= 1e-5 * x.double().abs().mean().item()
+    assert ((rstd.double() - rstd64) / rstd64).abs().max().item() <= 2e-5
+    xh = (x.double() - mean64.unsqueeze(-1)) * rstd64.unsqueeze(-1)
+    for got_p, want_p, scale in zip((dweight, dbias), want[1:], ((dy.double() * xh).abs().sum(0),
+                                                                dy.double().abs().sum(0))):
+        assert ((got_p.double() - want_p).abs() <= 1e-5 * scale).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layernorm_module_runs_the_kernels(dtype):
+    """``layers.LayerNorm`` on a card: one forward and one backward call of
+    the kernels through the autograd Function, its outputs and gradients
+    the bits of the kernels called directly (the f32 parameters' gradients
+    in f32), no copy of dense rows; the module runs no ``F.layer_norm``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtda_semanticsegmentation_tpu_torch.kernels import layernorm as kln
+    from rtda_semanticsegmentation_tpu_torch.models.layers import LayerNorm
+
+    x, weight, bias, dy = _ln_case(2 * 33 * 65, 320, dtype, 11)
+    norm = LayerNorm(320, LN_EPS, dtype=dtype).cuda()
+    with torch.no_grad():
+        norm.weight.copy_(weight)
+        norm.bias.copy_(bias)
+    x3 = x.view(2, 33 * 65, 320).clone().requires_grad_(True)
+    before = (kln.fwd_calls, kln.bwd_calls, kln.copies)
+    with _FunctionsSeen() as seen:
+        y = norm(x3)
+    y.backward(dy.view_as(y))
+    torch.cuda.synchronize()
+    assert (kln.fwd_calls - before[0], kln.bwd_calls - before[1], kln.copies - before[2]) == (1, 1, 0)
+    want = _ln_run(x, weight, bias, dy)
+    assert torch.equal(y.view_as(want[0]), want[0]) and torch.equal(x3.grad.view_as(want[3]), want[3])
+    assert torch.equal(norm.weight.grad, want[4]) and torch.equal(norm.bias.grad, want[5])
+    assert seen.names and "layer_norm" not in seen.names, seen.names
+
+
+class _FunctionsSeen(torch.overrides.TorchFunctionMode):
+    """The names of the torch functions called inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        self.names.append(getattr(func, "__name__", str(func)))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layernorm_copies_rows_that_are_not_dense(dtype):
+    """An input whose rows are not dense (a transposed view), or that starts
+    off a 16-byte boundary, is copied once, counted, and gives the bits of
+    its dense copy, output and gradients; a gradient whose rows are not
+    dense is copied once too; fp16 and f64 on a card raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtda_semanticsegmentation_tpu_torch.kernels import layernorm as kln
+
+    x, weight, bias, dy = _ln_case(4096, 128, dtype, 12)
+    xt = x.t().contiguous().t()
+    xo = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")[1:].view_as(x).copy_(x)
+    dyt = dy.t().contiguous().t()
+    assert not kln.takes(xt) and not kln.takes(xo) and torch.equal(xt, x) and torch.equal(xo, x)
+    runs = []
+    for xin, dyin, copies in ((x, dy, 0), (xt, dy, 1), (xo, dy, 1), (x, dyt, 1)):
+        before = kln.copies
+        xg = xin.detach().requires_grad_(True)
+        wg, bg = weight.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+        y = kln.layer_norm(xg, wg, bg, LN_EPS)
+        y.backward(dyin)
+        torch.cuda.synchronize()
+        assert kln.copies - before == copies
+        runs.append((y.detach(), xg.grad, wg.grad, bg.grad))
+    assert all(torch.equal(a, b) for run in runs[1:] for a, b in zip(run, runs[0]))
+    for bad in (x.half(), x.double()):
+        with pytest.raises(ValueError, match="bf16 or f32"):
+            kln.layer_norm(bad, weight, bias, LN_EPS)
+
+
+@pytest.mark.cuda
+def test_layernorm_in_a_cuda_graph_is_the_eager_run():
+    """``layers.LayerNorm`` captured by ``torch.cuda.make_graphed_callables``
+    (as SegFormer's encoder is) gives the eager run's bits, output and
+    gradients, on two inputs in turn."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rtda_semanticsegmentation_tpu_torch.models.layers import LayerNorm
+
+    norm = LayerNorm(320, LN_EPS, dtype=torch.bfloat16).cuda()
+    with torch.no_grad():
+        norm.weight.normal_(1.0, 0.2)
+        norm.bias.normal_(0.0, 0.1)
+    shape = (2, 16384 // 2, 320)
+    x0, *_ = _ln_case(16384, 320, torch.bfloat16, 13)
+    graphed = torch.cuda.make_graphed_callables(norm, (x0.view(shape).clone().requires_grad_(True),))
+    for seed in (14, 15):
+        x, _, _, dy = _ln_case(16384, 320, torch.bfloat16, seed)
+        out = {}
+        for path, fn in (("graph", graphed), ("eager", norm)):
+            xg = x.view(shape).clone().requires_grad_(True)
+            y = fn(xg)
+            out[path] = (y.detach().clone(), *torch.autograd.grad(y, (xg, norm.weight, norm.bias), dy.view(shape)))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out["graph"], out["eager"]))
+
+
+@pytest.mark.cuda
+def test_segformer_counts_its_layernorms_on_replay():
+    """A replay of the encoder's graphs counts each of its LayerNorms once
+    forward and, when the backward reaches it, once backward (22 at
+    blocks 1/1/2/1: 10 block norms, 4 key reductions, 4 patch embeddings,
+    4 stage norms), as the eager encoder counts them call by call. The
+    pass that captures the graphs calls the kernels' autograd Function for
+    each of them in each of ``make_graphed_callables``' warm-up iterations
+    and in its capture, forward and backward, so the 22 a replay counts
+    are the calls the graphs hold."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import inspect
+
+    from rtda_semanticsegmentation_tpu_torch.config import ModelConfig
+    from rtda_semanticsegmentation_tpu_torch.kernels import layernorm as kln
+    from rtda_semanticsegmentation_tpu_torch.models.factory import build_model, init_model
+
+    cfg = ModelConfig(name="segformer", compute_dtype="bfloat16", mit_embed_dims=(32, 64, 160, 256),
+                      mit_depths=(1, 1, 2, 1), decoder_dim=64)
+    model = build_model(cfg, "cuda", train=True)
+    init_model(model, torch.Generator().manual_seed(0))
+    x = torch.randn((2, 64, 128, 3)).to("cuda", torch.bfloat16).permute(0, 3, 1, 2)
+    warmup = inspect.signature(torch.cuda.make_graphed_callables).parameters["num_warmup_iters"].default
+    for path in ("capture", "graph", "eager"):
+        before = (kln.fwd_calls, kln.bwd_calls)
+        tokens = [t for t, _ in (model.backbone(x) if path == "eager" else model._encode(x))]
+        fwd = kln.fwd_calls - before[0]
+        sum(t.float().sum() for t in tokens).backward()
+        torch.cuda.synchronize()
+        # the capture pass: warm-up and capture calls, then the replay's own count
+        want = 22 * (warmup + 2) if path == "capture" else 22
+        assert (fwd, kln.bwd_calls - before[1]) == (want, want), path
+    assert len(model._graphs) == 1
